@@ -4,13 +4,15 @@ The port of ``hic_genome_assembler_tpu`` (JAX on a TPU) to PyTorch on an
 NVIDIA GPU.  The JAX package stays the reference: this package imports
 its jax-free host modules (config, io, hypergeom, perms, UPGMA, Louvain,
 parts 3 and 4, fixtures) and re-implements the modules that touch the
-device.  It never imports jax.
+device.  It never imports jax or scikit-learn.
 
   python -m hic_genome_assembler_tpu_torch -part1 -part2 -part3 -part4 \
       -config <file> -device cuda
 
 Part 1's rank-count scans run through the hand-written CUDA kernel in
-``csrc/rank_counts.cu``, built at first use into ``build/kernels/``.
+``csrc/rank_counts.cu``, and its HMM branch's forward-backward and Viterbi
+recursions through those in ``csrc/hmm_scan.cu``; all are built at first
+use into ``build/kernels/``.
 """
 
 __version__ = "0.1.0"

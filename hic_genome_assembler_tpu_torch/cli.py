@@ -13,7 +13,7 @@ import argparse
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from hic_genome_assembler_tpu.config import (
     ensure_all_variables_are_set,
@@ -23,11 +23,13 @@ from hic_genome_assembler_tpu.config import (
 
 @dataclass
 class RunReport:
-    """What one CLI run did: wall seconds per part, and where part 1's
-    rank-count scans ran (``"host"`` or a torch device)."""
+    """What one CLI run did: wall seconds per part, where part 1's
+    rank-count scans ran (``"host"`` or a torch device) and part 1's final
+    cut list."""
 
     part_seconds: Dict[str, float] = field(default_factory=dict)
     rank_counts_on: Optional[str] = None
+    cut_indices: Optional[List[int]] = None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,7 +81,7 @@ def main(argv=None) -> RunReport:
         from hic_genome_assembler_tpu_torch.models import part1_cluster as part1
 
         t0 = time.time()
-        report.rank_counts_on = part1.run_pipeline(
+        report.rank_counts_on, report.cut_indices = part1.run_pipeline(
             var["hicProBedFile"], var["hicProBiasFile"], var["hicProMatrixFile"],
             var["hicProScaffSizeFile"], var["dendrogramOrderFile"],
             var["avgClusterPlot"], var["avgClusterPlot_outlined"],
@@ -87,7 +89,7 @@ def main(argv=None) -> RunReport:
             var["hyperGeom"], var["hmm"], var["minSize"], var["modularity"],
             var["louvainRounds"], var["psig"], var["convergenceRounds"],
             var["lookAhead"], var["resolution"], device,
-            matrix_mode=var["matrixMode"],
+            matrix_mode=var["matrixMode"], hmm_mode=var["hmmMode"],
         )
         report.part_seconds["part1"] = time.time() - t0
     if args.part2:

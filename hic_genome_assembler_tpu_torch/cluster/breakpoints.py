@@ -16,7 +16,7 @@ large safety cap.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import scipy.stats
@@ -92,12 +92,15 @@ def _pow2_params(rows: List[Tuple[int, int, int]]) -> np.ndarray:
 class RankCounts:
     """Device-resident padded rank matrix + cached count scans.
 
-    Below ``_HOST_N`` rows the scans run on the host in numpy.  Above, the
-    matrix is padded once (``count_kernels.pad_rank`` layout) and placed on
-    ``device``; the path is chosen by that tensor's device alone.
+    ``rank_mat`` is a numpy array or an integer torch tensor (device mode
+    ranks on the device).  Below ``_HOST_N`` rows the scans run on the host
+    in numpy, and a tensor is read back.  Above, the matrix is padded once
+    (``count_kernels.pad_rank`` layout) on ``device``; a tensor already
+    there is padded in place of a round trip through the host.  The path is
+    chosen by the padded tensor's device alone.
     """
 
-    def __init__(self, rank_mat: np.ndarray, device: torch.device):
+    def __init__(self, rank_mat: Union[np.ndarray, torch.Tensor], device: torch.device):
         self.n = rank_mat.shape[0]
         self._host: Optional[np.ndarray] = None
         self._dev: Optional[torch.Tensor] = None
@@ -108,10 +111,13 @@ class RankCounts:
         # read back together when any of their keys is first consumed
         self._pending: List[tuple] = []
         if self.n < _HOST_N:
+            if isinstance(rank_mat, torch.Tensor):
+                rank_mat = rank_mat.cpu().numpy()
             self._host = np.asarray(rank_mat, dtype=np.int32)
             return
-        rank = torch.from_numpy(np.ascontiguousarray(rank_mat, dtype=np.int32))
-        self._dev = count_kernels.pad_rank(rank.to(device))
+        if not isinstance(rank_mat, torch.Tensor):
+            rank_mat = torch.from_numpy(np.ascontiguousarray(rank_mat, dtype=np.int32))
+        self._dev = count_kernels.pad_rank(rank_mat.to(device))
 
     @property
     def where(self) -> str:

@@ -1,20 +1,20 @@
 """Part 1 — cluster contact-map rows into chromosome groups.
 
-Counterpart of ``hic_genome_assembler_tpu/models/part1_cluster.py`` for the
-default branch: ``hyperGeom=True`` with ``matrixMode=exact``.  Ingest,
-distance transform, UPGMA, the f64 similarity and rank matrix and the
-Louvain tail are the JAX package's host modules, reused; the rank-count
-scans of the breakpoint search run through the port's ``RankCounts`` on
-the given torch device.
-
-``hmm=True`` and ``matrixMode=device`` are not ported yet and raise.
+Counterpart of ``hic_genome_assembler_tpu/models/part1_cluster.py``, every
+branch: ``hyperGeom`` with ``matrixMode`` ``exact`` or ``device``, and
+``hmm`` with ``hmmMode`` ``fast`` or ``exact``.  Ingest, distance
+transform, UPGMA, the f64 similarity, log and (exact mode) rank matrix and
+the Louvain tail are the JAX package's host modules, reused.  On the given
+torch device run: the rank-count scans of the breakpoint search (the port's
+``RankCounts``), the rank argsort in device mode (``ops/matrix.py``) and
+the HMM fits of the HMM branch (``cluster/hmm_cuts.py``).
 """
 
 from __future__ import annotations
 
 import time
 from collections import Counter
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,8 +23,22 @@ from hic_genome_assembler_tpu.cluster import louvain, upgma
 from hic_genome_assembler_tpu.io import filebus, hicpro
 from hic_genome_assembler_tpu.ops import oracle
 from hic_genome_assembler_tpu.utils import profiling
-from hic_genome_assembler_tpu_torch.cluster import breakpoints
+from hic_genome_assembler_tpu_torch.cluster import breakpoints, hmm_cuts
+from hic_genome_assembler_tpu_torch.ops import matrix
 from hic_genome_assembler_tpu_torch.utils import plots
+
+
+def permute_checked(adj: np.ndarray, order) -> np.ndarray:
+    """``oracle.permute_symmetric`` after a bounds check: its native path
+    (large f64 matrices) does not check ``order`` and would read out of
+    bounds where ``np.ix_`` raises."""
+    idx = np.asarray(order, dtype=np.int64)
+    n = adj.shape[0]
+    if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise IndexError(
+            f"order holds indices in [{int(idx.min())}, {int(idx.max())}], outside [0, {n})"
+        )
+    return oracle.permute_symmetric(adj, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +90,7 @@ def modularity_remaining_data(
         cut_indices.append(cut_indices[-1] + group_sizes[rg])
 
     new_order = list(range(start)) + remaining_order
-    adj = oracle.permute_symmetric(adj, new_order)
+    adj = permute_checked(adj, new_order)
     bin_list = [bin_list[i] for i in new_order]
 
     if cut_indices[0] == 0:
@@ -176,20 +190,6 @@ def assess_chromosome_clustering(
 # Part 1 driver
 # ---------------------------------------------------------------------------
 
-def check_supported(hmm: bool, matrix_mode: str) -> None:
-    """Raise for the part-1 branches this package does not run yet."""
-    if hmm:
-        raise NotImplementedError(
-            "hmm=True is not yet ported to hic_genome_assembler_tpu_torch; "
-            "run it with the hic_genome_assembler_tpu package"
-        )
-    if matrix_mode != "exact":
-        raise NotImplementedError(
-            f"matrixMode={matrix_mode} is not yet ported to "
-            "hic_genome_assembler_tpu_torch; use matrixMode = exact"
-        )
-
-
 def run_pipeline(
     hic_pro_bed_file: str,
     hic_pro_bias_file: str,
@@ -213,12 +213,21 @@ def run_pipeline(
     device: torch.device,
     louvain_seed: int = 0,
     matrix_mode: str = "exact",
-):
+    hmm_mode: str = "fast",
+) -> Tuple[Optional[str], List[int]]:
     """Part 1 on ``device``.  Returns where the rank-count scans ran
-    (``RankCounts.where``: ``"host"`` or the torch device), ``None`` when
-    ``hyper_geom`` is off.  ``convergence_rounds`` and ``look_ahead``
-    belong to the HMM branch and are accepted for signature parity."""
-    check_supported(hmm, matrix_mode)
+    (``RankCounts.where``: ``"host"`` or the torch device; ``None`` when
+    ``hyper_geom`` is off) and the final cut list.
+
+    ``matrix_mode`` (``hyper_geom`` only): ``exact`` ranks the f64
+    similarity on the host with numpy's tie order, the parity mode;
+    ``device`` ranks its f32 cast on ``device`` (stable ascending sort,
+    columns reversed) and hands the device tensor to ``RankCounts``.  Not
+    a parity mode against ``exact``: f32 values collide where f64 values
+    differ, and numpy's tie order is its own.
+
+    ``hmm_mode`` (``hmm`` only, when ``hyper_geom`` is off): ``fast`` or
+    ``exact``, as ``ops/gaussian_hmm.GaussianHMM2`` describes."""
     print("########################################")
     print("### Working on Part1 of the pipeline ###")
     total_start = time.time()
@@ -238,7 +247,7 @@ def run_pipeline(
     filebus.write_dendrogram_leaf_order(dendro["ivl"], dendro["leaves"], dendrogram_order_file)
     dendro = filebus.read_dendrogram_leaf_order(dendrogram_order_file)
     leaves = dendro["leaves"]
-    adj = oracle.permute_symmetric(adj, leaves)
+    adj = permute_checked(adj, leaves)
     bin_list = [bin_list[i] for i in leaves]
     if avg_cluster_plot:
         plots.plot_contact_map(adj, resolution=resolution, save_plot=avg_cluster_plot)
@@ -248,10 +257,19 @@ def run_pipeline(
     start = time.time()
     row_sums = np.asarray([b.rowSum for b in bin_list])
     rank_where = None
-    with profiling.timer("part1/cut_detection_hypergeom"):
+    with profiling.timer(
+        "part1/cut_detection_hmm" if hmm else "part1/cut_detection_hypergeom"
+    ):
         if hyper_geom:
             adj = oracle.to_similarity(adj, row_sums)
-            rank_mat = oracle.rank_matrix_desc(adj)
+            if matrix_mode == "device":
+                # the order-preserving f32 cast of the host f64 similarity
+                # is ranked on the device and stays there
+                sim32 = torch.from_numpy(adj.astype(np.float32)).to(device)
+                rank_mat = matrix.rank_matrix_desc(sim32)
+                del sim32
+            else:
+                rank_mat = oracle.rank_matrix_desc(adj)
             counts = breakpoints.RankCounts(rank_mat, device)
             del rank_mat
             initial = breakpoints.pre_process_all_matrix_breakpoints(
@@ -261,6 +279,20 @@ def run_pipeline(
             rank_where = counts.where
             del counts  # frees the device copy of the rank matrix
             adj = oracle.log_transform(adj, log_base=10, plus_one=True)
+        elif hmm:
+            adj = oracle.to_similarity(adj, row_sums)
+            adj = oracle.log_transform(adj, log_base=10, plus_one=True)
+            cut_indices = hmm_cuts.identify_chromosome_groups_hmm(
+                adj,
+                bin_list,
+                min_size=min_size,
+                modularity=modularity,
+                convergence_rounds=convergence_rounds,
+                look_ahead=look_ahead,
+                louvain_rounds=louvain_rounds,
+                hmm_mode=hmm_mode,
+                device=device,
+            )
         else:
             cut_indices = []
 
@@ -303,4 +335,4 @@ def run_pipeline(
     profiling.print_summary()
     print("CutIndices = " + str(cut_indices))
     print("- Part 1 (grouping bins to groups) completed successfully")
-    return rank_where
+    return rank_where, list(cut_indices)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The kernels in ``hic_genome_assembler_tpu_torch/csrc/*.cu`` expose plain C
-entry points.  At first use they are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into ``build/kernels/librankcounts.so`` at the repository
+entry points.  At first use each source is compiled with ``nvcc`` for
+Hopper (``sm_90a``), all of them at once in parallel processes, and the
+objects are linked into ``build/kernels/libkernels.so`` at the repository
 root and loaded with ``ctypes``; the build is redone whenever the hash of
 the sources or of the flags changes.  Nothing here runs at import time:
 the CPU test machines have no ``nvcc``.
@@ -22,10 +23,10 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
-_LIB_NAME = "librankcounts.so"
+_LIB_NAME = "libkernels.so"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -62,14 +63,30 @@ def build() -> float:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = BUILD_DIR / f"{_LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [
+        [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in compiles
+    ]
+    results = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(compiles, procs, results):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(" ".join(cmd), out, err))
+    link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            "nvcc failed ({}):\n{}\n{}".format(" ".join(cmd), proc.stdout, proc.stderr)
+            "nvcc failed ({}):\n{}\n{}".format(" ".join(link), proc.stdout, proc.stderr)
         )
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return time.perf_counter() - t0
@@ -91,4 +108,26 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p,   # cudaStream_t
     ]
     lib.rank_counts.restype = ctypes.c_int
+    lib.hmm_forward_backward.argtypes = [
+        ctypes.c_void_p,   # const double* log_b [T, 2]
+        ctypes.c_void_p,   # const double* log_start [2]
+        ctypes.c_void_p,   # const double* log_trans [2, 2]
+        ctypes.c_int,      # T
+        ctypes.c_void_p,   # double* scratch [2, T, 2]
+        ctypes.c_void_p,   # double* gamma [T, 2]
+        ctypes.c_void_p,   # double* xi_sum [2, 2]
+        ctypes.c_void_p,   # double* logprob [1]
+        ctypes.c_void_p,   # cudaStream_t
+    ]
+    lib.hmm_forward_backward.restype = ctypes.c_int
+    lib.hmm_viterbi.argtypes = [
+        ctypes.c_void_p,   # const double* log_b [T, 2]
+        ctypes.c_void_p,   # const double* log_start [2]
+        ctypes.c_void_p,   # const double* log_trans [2, 2]
+        ctypes.c_int,      # T
+        ctypes.c_void_p,   # uint8_t* scratch [max(T - 1, 1), 2]
+        ctypes.c_void_p,   # int32_t* path [T]
+        ctypes.c_void_p,   # cudaStream_t
+    ]
+    lib.hmm_viterbi.restype = ctypes.c_int
     return lib

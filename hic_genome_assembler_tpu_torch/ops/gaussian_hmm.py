@@ -1,0 +1,145 @@
+"""2-state diagonal-covariance Gaussian HMM: EM fit and Viterbi decode.
+
+Counterpart of ``hic_genome_assembler_tpu/ops/gaussian_hmm.py::GaussianHMM2``
+(hmmlearn's ``GaussianHMM(n_components=2, covariance_type="diag",
+n_iter=1000, init_params="cm", params="cmt")`` as the reference configures
+it): k-means means, data-variance covariances, a uniform startprob that is
+never re-estimated, the transmat re-estimated from
+``[[.9, .1], [1e-4, .9999]]``, EM to a log-likelihood gain below ``tol``,
+Viterbi decoding.
+
+Everything is float64, on the host and on ``device`` alike.  The per-frame
+log-densities and the M step are matrix products (``torch.matmul``); the
+forward-backward and Viterbi recursions go through ``ops.hmm_kernels`` (the
+CUDA kernels on a GPU, their plain torch loops on the CPU).  The EM loop
+runs on the host and reads the log-likelihood back once per iteration.
+Fits and EM iterations are counted in ``profiling`` (part 1's summary
+prints them).
+
+``mode`` keeps the JAX package's two semantic differences and nothing
+else: k-means takes 2 inits in ``"fast"`` mode and 10 in ``"exact"`` mode,
+and ``fit_predict`` decodes with the fit's own upload in fast mode and with
+a separate ``predict`` in exact mode.  The JAX fast mode's power-of-two
+padding only bounded XLA recompiles and is exact under its masks, so it is
+not reproduced; nor is the fingerprint cache of its ``predict``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from hic_genome_assembler_tpu.utils import profiling
+from hic_genome_assembler_tpu_torch.ops import hmm_kernels, kmeans
+
+_MIN_COVAR = kmeans.MIN_COVAR
+_LOG2PI = float(np.log(2.0 * np.pi))
+
+
+def _log_gaussian_diag(X, X2, means, covars) -> torch.Tensor:
+    """log N(x_t | mu_k, diag(sig_k)) for all t, k: the matmul form of
+    ``gaussian_hmm._log_gaussian_diag``; ``X2`` is ``X ** 2``."""
+    inv = 1.0 / covars
+    quad = X2 @ inv.T - 2.0 * (X @ (means * inv).T) + torch.sum(means ** 2 * inv, dim=1)[None, :]
+    logdet = torch.sum(torch.log(covars), dim=1)[None, :]
+    return -0.5 * (quad + logdet + X.shape[1] * _LOG2PI)
+
+
+def _m_step(X, X2, gamma, xi_sum):
+    norm = torch.clamp_min(gamma.sum(dim=0)[:, None], 1e-300)
+    means = (gamma.T @ X) / norm
+    covars = (gamma.T @ X2) / norm - means ** 2 + _MIN_COVAR
+    row = xi_sum.sum(dim=1, keepdim=True)
+    trans = xi_sum / torch.where(row > 0, row, torch.ones_like(row))
+    return means, torch.clamp_min(covars, _MIN_COVAR), trans
+
+
+class GaussianHMM2:
+    """The reference's HMM configuration on a torch ``device``."""
+
+    def __init__(
+        self,
+        n_iter: int = 1000,
+        tol: float = 1e-2,
+        seed: int = 0,
+        startprob: Tuple[float, float] = (0.5, 0.5),
+        transmat=((0.9, 0.1), (1e-4, 0.9999)),
+        mode: str = "fast",
+        device="cpu",
+    ):
+        if mode not in ("fast", "exact"):
+            raise ValueError(f"hmm mode must be 'fast' or 'exact', got {mode!r}")
+        self.n_iter = n_iter
+        self.tol = tol
+        self.seed = seed
+        self.startprob = np.asarray(startprob, dtype=np.float64)
+        self.transmat_init = np.asarray(transmat, dtype=np.float64)
+        self.mode = mode
+        self.device = torch.device(device)
+        self.means_: np.ndarray = None
+        self.covars_: np.ndarray = None
+        self.transmat_: np.ndarray = None
+
+    def _init_params(self, X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        n_init = 10 if self.mode == "exact" else 2
+        return kmeans.kmeans2(X, self.seed, n_init), kmeans.diag_covars(X)
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(self.device)
+
+    def _log_start(self) -> torch.Tensor:
+        return torch.log(self._tensor(self.startprob))
+
+    def _em(self, X: torch.Tensor, X2: torch.Tensor, means0, covars0) -> None:
+        means, covars = self._tensor(means0), self._tensor(covars0)
+        trans = self._tensor(self.transmat_init)
+        log_start = self._log_start()
+        prev_lp = -np.inf
+        for _ in range(self.n_iter):
+            # lp comes from the parameters before the update, and the update
+            # applies in the converging iteration too
+            log_b = _log_gaussian_diag(X, X2, means, covars)
+            lp, gamma, xi = hmm_kernels.forward_backward(log_b, log_start, torch.log(trans))
+            means, covars, trans = _m_step(X, X2, gamma, xi)
+            profiling.count("part1/hmm_em_iterations")
+            lp = float(lp)
+            if lp - prev_lp < self.tol:
+                break
+            prev_lp = lp
+        profiling.count("part1/hmm_fits")
+        self.means_ = means.cpu().numpy()
+        self.covars_ = covars.cpu().numpy()
+        self.transmat_ = trans.cpu().numpy()
+
+    def _decode(self, X: torch.Tensor, X2: torch.Tensor) -> np.ndarray:
+        log_b = _log_gaussian_diag(X, X2, self._tensor(self.means_), self._tensor(self.covars_))
+        path = hmm_kernels.viterbi(log_b, self._log_start(), torch.log(self._tensor(self.transmat_)))
+        return path.cpu().numpy().astype(np.int64)
+
+    def _upload(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        Xd = self._tensor(X)
+        return Xd, Xd * Xd
+
+    def _fit(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """EM on ``X``; returns its upload (``X``, ``X ** 2`` on device)."""
+        means0, covars0 = self._init_params(X)
+        data = self._upload(X)
+        self._em(*data, means0, covars0)
+        return data
+
+    def fit(self, X) -> "GaussianHMM2":
+        self._fit(np.asarray(X, dtype=np.float64))
+        return self
+
+    def predict(self, X) -> np.ndarray:
+        """Viterbi path of ``X`` under the fitted parameters: int64 [T]."""
+        return self._decode(*self._upload(np.asarray(X, dtype=np.float64)))
+
+    def fit_predict(self, X) -> np.ndarray:
+        """``fit(X)`` then the Viterbi path of ``X``; fast mode decodes the
+        fit's own upload, exact mode calls :meth:`predict`."""
+        X = np.asarray(X, dtype=np.float64)
+        data = self._fit(X)
+        return self.predict(X) if self.mode == "exact" else self._decode(*data)

@@ -2,8 +2,9 @@
 
 The genome generator, HiC-Pro writer, file-bus readers and FASTA reader
 are the JAX package's host modules; this module adds the 16K north-star
-layout, the config file for a CLI run, and the planted-truth checks of
-the JAX package's ``benchmarks/run_benchmarks.py::config_e2e_16k``.
+layout, the HMM scale genome with its settings and golden record, the
+config file for a CLI run, and the planted-truth checks of the JAX
+package's ``benchmarks/run_benchmarks.py::config_e2e_16k``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,42 @@ E2E_SETTINGS = {
 }
 
 
+# Part-1 settings of the JAX package's HMM scale run
+# (``benchmarks/run_benchmarks.py::config_hmm_scale``): the hmm=True cut
+# search with a Louvain tail.
+HMM_SETTINGS = {
+    "hyperGeom": "False",
+    "hmm": "True",
+    "minSize": "5",
+    "modularity": ".05",
+    "convergenceRounds": "5",
+    "lookAhead": ".2",
+    "louvainRounds": "2",
+    "hmmMode": "fast",
+}
+
+# The JAX CLI's part-1 result on ``make_hmm_genome(8192)`` (see the file).
+HMM_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hmm_golden_3715.json")
+
+
+def make_hmm_genome(n: int = 4096, n_chroms: int = 12) -> fixtures.SyntheticGenome:
+    """The HMM scale genome of ``config_hmm_scale``: ``n_chroms``
+    chromosomes of 4-7 Pareto-sized scaffolds from ``default_rng(7)``,
+    scaled by ``n / 2900``; seed 7, noise 0.02, cross noise 0.004.
+    ``n`` = 640, 4096 and 8192 give 306, 1,838 and 3,715 bins."""
+    rng = np.random.default_rng(7)
+    layout = []
+    for _ in range(n_chroms):
+        k = int(rng.integers(4, 8))
+        sizes = np.maximum(
+            (rng.pareto(2.0, k) * 15 * (n / 2900.0) + 7 * (n / 2900.0)).astype(int), 3
+        )
+        layout.append(tuple(int(s) for s in sizes))
+    return fixtures.make_genome(
+        chrom_scaffold_bins=tuple(layout), seed=7, noise=0.02, cross_noise_frac=0.004,
+    )
+
+
 def e2e_layout(n_chroms: int = 25) -> Tuple[Tuple[int, ...], ...]:
     """Scaffold bin counts of the 16K fixture: 25 chromosomes x 52
     Pareto-sized scaffolds from ``default_rng(3)``; ``n_chroms`` keeps the
@@ -54,16 +91,23 @@ def make_e2e_genome(n_chroms: int = 25) -> fixtures.SyntheticGenome:
     )
 
 
-def prepare(workdir: str, n_chroms: int = 25) -> Tuple[fixtures.SyntheticGenome, str]:
-    """Make the 16K genome (or its first ``n_chroms`` chromosomes), write
-    its HiC-Pro files under ``workdir/hicpro`` and a CLI config with the
-    north-star settings; returns (genome, config path)."""
-    genome = make_e2e_genome(n_chroms)
+def prepare(
+    workdir: str,
+    n_chroms: int = 25,
+    genome: Optional[fixtures.SyntheticGenome] = None,
+    settings: Optional[Dict[str, str]] = None,
+) -> Tuple[fixtures.SyntheticGenome, str, Dict[str, str]]:
+    """Make the 16K genome (or its first ``n_chroms`` chromosomes, or take
+    ``genome``), write its HiC-Pro files under ``workdir/hicpro`` and a CLI
+    config with the north-star settings updated by ``settings``; returns
+    (genome, config path, HiC-Pro paths)."""
+    if genome is None:
+        genome = make_e2e_genome(n_chroms)
     paths = fixtures.write_hicpro_files(genome, os.path.join(workdir, "hicpro"))
     config = write_config(
-        os.path.join(workdir, "config.txt"), workdir, paths, genome.resolution
+        os.path.join(workdir, "config.txt"), workdir, paths, genome.resolution, settings
     )
-    return genome, config
+    return genome, config, paths
 
 
 def write_config(

@@ -1,10 +1,11 @@
 """Carry device state from the JAX package's objects into the port's.
 
 The system has no weights; its device state is the padded rank matrix of
-part 1's ``RankCounts`` and, per chromosome in part 2, the pair-profile
-table ``h`` with its padded sizes and the float64 host bookkeeping of
-``ChromosomeScorer``.  Both functions take numpy arrays (``np.asarray`` of
-the JAX arrays), so this module needs no jax.
+part 1's ``RankCounts``, the fitted parameters of part 1's HMMs and, per
+chromosome in part 2, the pair-profile table ``h`` with its padded sizes
+and the float64 host bookkeeping of ``ChromosomeScorer``.  Every function
+takes numpy arrays (``np.asarray`` of the JAX arrays), so this module needs
+no jax.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from hic_genome_assembler_tpu_torch.cluster.breakpoints import RankCounts
 from hic_genome_assembler_tpu_torch.ops import cost
+from hic_genome_assembler_tpu_torch.ops.gaussian_hmm import GaussianHMM2
 
 
 def rank_counts_from_numpy(padded_rank: np.ndarray, n: int, device: torch.device) -> RankCounts:
@@ -26,6 +28,28 @@ def rank_counts_from_numpy(padded_rank: np.ndarray, n: int, device: torch.device
     if padded_rank.ndim != 2 or min(padded_rank.shape) < n:
         raise ValueError(f"rank matrix {padded_rank.shape} holds fewer than {n} rows/cols")
     return RankCounts(np.array(padded_rank[:n, :n], dtype=np.int32), device)
+
+
+def gaussian_hmm_from_numpy(
+    means: np.ndarray,
+    covars: np.ndarray,
+    transmat: np.ndarray,
+    device: torch.device,
+    mode: str = "fast",
+) -> GaussianHMM2:
+    """A fitted port ``GaussianHMM2`` on ``device`` with a JAX model's
+    ``means_`` [2, D], ``covars_`` [2, D] and ``transmat_`` [2, 2]
+    (the startprob is the fixed uniform one of both classes)."""
+    means = np.array(means, dtype=np.float64)
+    covars = np.array(covars, dtype=np.float64)
+    transmat = np.array(transmat, dtype=np.float64)
+    if means.ndim != 2 or means.shape[0] != 2 or covars.shape != means.shape:
+        raise ValueError(f"means {means.shape} and covars {covars.shape} must both be [2, D]")
+    if transmat.shape != (2, 2):
+        raise ValueError(f"transmat must be [2, 2], got {transmat.shape}")
+    model = GaussianHMM2(mode=mode, device=device)
+    model.means_, model.covars_, model.transmat_ = means, covars, transmat
+    return model
 
 
 _SCORER_ARRAYS = (

@@ -24,6 +24,7 @@ from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp  # noqa: E4
 from hic_genome_assembler_tpu_torch.models import part2_order  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import cost  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import count_kernels as ck  # noqa: E402
+from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, matrix  # noqa: E402
 from hic_genome_assembler_tpu_torch.utils import e2e  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -115,6 +116,101 @@ def test_cli_on_cuda_byte_equal_to_cpu(cuda, tmp_path, monkeypatch):
         )
         runs[name] = cli.main(parts + ["-config", cfg, "-device", name])
     assert runs["cuda"].rank_counts_on.startswith("cuda")
+    files = sorted(os.listdir(tmp_path / "cpu" / "files"))
+    assert "assembled.fasta" in files
+    for name in files:
+        assert filecmp.cmp(tmp_path / "cuda" / "files" / name,
+                           tmp_path / "cpu" / "files" / name, shallow=False), name
+
+
+def _scan_inputs(T, seed, kind="random"):
+    rng = np.random.default_rng(seed)
+    log_b = rng.normal(0.0, 3.0, (T, 2))
+    trans = np.array([[0.9, 0.1], [1e-4, 0.9999]])
+    if kind == "neg_inf":
+        trans = np.array([[1.0, 0.0], [0.3, 0.7]])
+    if kind == "ties":
+        log_b[:, 1] = log_b[:, 0]
+        trans = np.full((2, 2), 0.5)
+    with np.errstate(divide="ignore"):
+        return [torch.from_numpy(a) for a in (log_b, np.log([0.5, 0.5]), np.log(trans))]
+
+
+@pytest.mark.parametrize(
+    "T,kind", [(1, "random"), (2, "random"), (257, "random"), (3715, "random"),
+               (300, "neg_inf"), (64, "ties")],
+)
+def test_hmm_kernels_match_plain(cuda, T, kind):
+    args = [a.to(cuda) for a in _scan_inputs(T, T, kind)]
+    before = dict(hmm_kernels.LAUNCHES)
+    got = hmm_kernels.forward_backward(*args)
+    path = hmm_kernels.viterbi(*args)
+    torch.cuda.synchronize()
+    assert hmm_kernels.LAUNCHES["hmm_forward_backward"] == before["hmm_forward_backward"] + 1
+    assert hmm_kernels.LAUNCHES["hmm_viterbi"] == before["hmm_viterbi"] + 1
+    want = hmm_kernels.forward_backward_plain(*args)
+    for g, w in zip(got, want):
+        assert not torch.isnan(g).any()
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-300)
+    assert torch.equal(path, hmm_kernels.viterbi_plain(*args))
+    with pytest.raises(ValueError):
+        hmm_kernels.forward_backward(args[0].float(), *args[1:])
+
+
+@pytest.mark.parametrize("mode", ["fast", "exact"])
+def test_gaussian_hmm_on_cuda_equals_cpu(cuda, mode):
+    rng = np.random.default_rng(5)
+    X = np.concatenate([rng.normal(0.0, 1.0, (140, 12)), rng.normal(1.5, 1.0, (90, 12))])
+    gpu = gaussian_hmm.GaussianHMM2(seed=0, mode=mode, device=cuda)
+    cpu = gaussian_hmm.GaussianHMM2(seed=0, mode=mode, device=CPU)
+    np.testing.assert_array_equal(gpu.fit_predict(X), cpu.fit_predict(X))
+    for attr in ("means_", "covars_", "transmat_"):
+        np.testing.assert_allclose(getattr(gpu, attr), getattr(cpu, attr), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [97, 2500])
+def test_rank_matrix_desc_on_cuda_equals_numpy(cuda, n):
+    rng = np.random.default_rng(n)
+    m = rng.choice(np.array([0.0, -0.0, 1.5, 2.25, 1e-7], dtype=np.float32), (n, n))
+    m[:, ::7] = -0.0
+    m[3] = rng.random(n).astype(np.float32)
+    got = matrix.rank_matrix_desc(torch.from_numpy(m).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.argsort(m, axis=1, kind="stable")[:, ::-1])
+
+
+@pytest.mark.parametrize("case", ["hmm_fast", "hmm_exact", "device"])
+def test_other_part1_branches_on_cuda_byte_equal_to_cpu(cuda, tmp_path, monkeypatch, case):
+    if case.startswith("hmm"):
+        genome = fixtures.make_genome(
+            chrom_scaffold_bins=((7, 6, 4, 3), (6, 5, 5), (4, 4, 2, 2)),
+            seed=5, noise=0.004, cross_noise_frac=0.001, decay_alpha=0.0,
+        )
+        settings = {"hyperGeom": "False", "hmm": "True", "minSize": "11", "modularity": "0",
+                    "louvainRounds": "3", "convergenceRounds": "5", "lookAhead": ".5",
+                    "hmmMode": case[4:], "nScaffolds": "4", "scanScaffolds": "3"}
+    else:
+        monkeypatch.setattr(bp, "_HOST_N", 0)
+        genome = fixtures.make_genome(
+            chrom_scaffold_bins=((14, 12, 10, 8, 6), (12, 11, 9, 8), (10, 9, 8, 6)),
+            seed=13, noise=0.005, cross_noise_frac=0.001,
+        )
+        settings = {"minSize": "5", "louvainRounds": "5", "nScaffolds": "4",
+                    "scanScaffolds": "3", "matrixMode": "device"}
+    paths = fixtures.write_hicpro_files(genome, str(tmp_path / "hicpro"))
+    runs = {}
+    launches = dict(hmm_kernels.LAUNCHES)
+    for name in ("cuda", "cpu"):
+        cfg = e2e.write_config(
+            str(tmp_path / f"{name}.cfg"), str(tmp_path / name), paths, genome.resolution, settings
+        )
+        runs[name] = cli.main(["-part1", "-part2", "-part3", "-part4", "-config", cfg,
+                               "-device", name])
+    assert runs["cuda"].cut_indices == runs["cpu"].cut_indices
+    if case.startswith("hmm"):
+        assert hmm_kernels.LAUNCHES["hmm_forward_backward"] > launches["hmm_forward_backward"]
+        assert hmm_kernels.LAUNCHES["hmm_viterbi"] > launches["hmm_viterbi"]
+    else:
+        assert runs["cuda"].rank_counts_on.startswith("cuda")
     files = sorted(os.listdir(tmp_path / "cpu" / "files"))
     assert "assembled.fasta" in files
     for name in files:
