@@ -14,7 +14,7 @@ passes or fails the run:
    test shapes, then both timed with CUDA events;
 4. main path: the 16K-bin north-star genome through
    ``hic_genome_assembler_tpu_torch.cli.main`` (-part1 -part2 -part3
-   -part4, device cuda), with the planted-truth checks; the pipeline's own
+   -part4, device cuda, mesh off), with the planted-truth checks; the pipeline's own
    output goes to build/chip_smoke_pipeline.log;
 5. HMM kernels: the forward-backward and Viterbi kernels against their
    plain torch versions on the card at T = 1, 2, 257, 3,715 and 17,162 and
@@ -27,19 +27,39 @@ passes or fails the run:
 7. device mode: -part1 with matrixMode = device on the 16K genome of phase
    4; the rank matrix is ranked and counted on the card, and 64 of its rows
    must equal numpy's stable argsort, reversed, of the same f32 input;
-   output in build/chip_smoke_device.log.
+   output in build/chip_smoke_device.log;
+8. mesh kernels: phase 3's 17,162-bin matrix and batches in the (2, 2) and
+   (4, 1) block layouts of a mesh; the kernel with each block's offsets must
+   equal its plain version (max abs err 0) and the blocks' sums one launch
+   on the whole matrix; a virtual-mesh RankCounts must equal the
+   single-device one; the K=8 growing batch timed over the (2, 2) blocks
+   against one launch;
+9. mesh path: part 1 then part 2 (``cli.run_parts``) on phase 4's genome
+   with a virtual (2, 2) mesh whose positions are all cuda:0; their files
+   must be byte-equal to phase 4's.  With two cards or more, the CLI with
+   -mesh auto over the real cards runs too.  Output in
+   build/chip_smoke_mesh.log;
+10. EP: two CLI processes (-part2, RANK 0 and 1, WORLD_SIZE 2, a free
+   localhost port) share the card on phase 4's part-1 files; the merged
+   chromosomeOrdering.txt and plotOrder.txt must be byte-equal to phase 4's.
+   Output in build/chip_smoke_ep{0,1}.log.
 
-Each of phases 4, 6 and 7 sets the launch counts of its kernels to 0 just
+Each of phases 4, 6, 7 and 9 sets the launch counts of its kernels to 0 just
 before it drives its path and fails if a kernel of that path was not
-launched.  The second-to-last stdout line is the kernels' JSON record, the
+launched (phase 10 runs part 2 only, which launches no kernel of the port).  The second-to-last stdout line is the kernels' JSON record, the
 last line {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 """
 
 import contextlib
+import filecmp
 import hashlib
 import json
+import math
 import os
+import re
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -64,6 +84,20 @@ HMM_TIMED_T = (3715, 17162)
 HMM_RTOL = 1e-10                   # both sides run the same f64 steps; only exp/log may differ
 HMM_GENOME_N = 8192                # make_hmm_genome(8192): 3,715 bins
 N_RANK_ROWS = 64                   # device-mode rank rows held against numpy
+MESH_LOG = REPO / "build" / "chip_smoke_mesh.log"
+EP_LOG = str(REPO / "build" / "chip_smoke_ep{}.log")
+MESH_LAYOUTS = ((2, 2), (4, 1))    # phase 8's block layouts
+PART1_FILES = ("dendrogramOrder.txt", "binGroupings.txt", "clusterAssessment.txt",
+               "chromosomeGroupings.txt")
+PART2_FILES = ("chromosomeOrdering.txt", "plotOrder.txt")
+# one EP rank: the CLI's part 2, plots skipped as in phase 4
+EP_CHILD = """
+import sys
+sys.modules["matplotlib"] = None
+sys.path.insert(0, sys.argv[1])
+from hic_genome_assembler_tpu_torch import cli
+cli.main(["-part2", "-config", sys.argv[2], "-device", "cuda"])
+"""
 
 
 class SmokeFailure(RuntimeError):
@@ -158,25 +192,14 @@ def phase_kernels(torch, np):
               f"{'' if mat.is_contiguous() else ' view'})")
 
     def rank_matrix(n, seed):
-        rng = np.random.default_rng(seed)
-        rows = rng.permuted(np.broadcast_to(np.arange(n, dtype=np.int32), (n, n)), axis=1)
-        return ck.pad_rank(torch.from_numpy(np.ascontiguousarray(rows)).to(dev))
+        return ck.pad_rank(random_rank(torch, np, n, seed))
 
     n = N_RANK
     t0 = time.time()
     R = rank_matrix(n, 0)
     print(f"rank matrix n={n}: padded {tuple(R.shape)} int32 on {R.device} "
           f"({time.time() - t0:.1f} s to make)")
-    starts = [0, 1, 471, 4096, 8191, 12149, n - 9, n - 1]
-    growing = [[s, 0, 1] for s in starts]
-    rng = np.random.default_rng(1)
-    fixed = []
-    for _ in range(58):
-        s = int(rng.integers(0, n - 1))
-        fixed.append([s, int(min(n - 1, s + rng.integers(1, 6000))), 0])
-    fixed += [[9000, 8000, 0], [n - 1, 0, 0], [0, n - 1, 0], [4000, n - 1, 0],
-              [n - 2, n - 1, 0], [0, 5, 0]]
-    check(len(fixed) == 64, "fixed batch must hold 64 scans")
+    starts, growing, fixed = kernel_batches(np, n)
     compare("growing K=8 at 16K", R, growing)
     compare("fixed K=64 at 16K", R, fixed)
     compare("fixed K=64 at 16K, 2048-column view", R[:, :2048], fixed)
@@ -207,6 +230,28 @@ def phase_kernels(torch, np):
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}
 
 
+def random_rank(torch, np, n, seed):
+    """An n x n int32 matrix of row permutations on the card."""
+    rng = np.random.default_rng(seed)
+    rows = rng.permuted(np.broadcast_to(np.arange(n, dtype=np.int32), (n, n)), axis=1)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(torch.device("cuda"))
+
+
+def kernel_batches(np, n):
+    """Phase 3's scan starts, K=8 growing batch and K=64 fixed batch."""
+    starts = [0, 1, 471, 4096, 8191, 12149, n - 9, n - 1]
+    growing = [[s, 0, 1] for s in starts]
+    rng = np.random.default_rng(1)
+    fixed = []
+    for _ in range(58):
+        s = int(rng.integers(0, n - 1))
+        fixed.append([s, int(min(n - 1, s + rng.integers(1, 6000))), 0])
+    fixed += [[9000, 8000, 0], [n - 1, 0, 0], [0, n - 1, 0], [4000, n - 1, 0],
+              [n - 2, n - 1, 0], [0, 5, 0]]
+    check(len(fixed) == 64, "fixed batch must hold 64 scans")
+    return starts, growing, fixed
+
+
 def phase_main_path(torch, workdir):
     """The full CLI pipeline on the planted 16K genome in ``workdir``;
     returns the kernel launches it made, its cut list, and the genome's
@@ -224,7 +269,10 @@ def phase_main_path(torch, workdir):
     fixture_s = time.time() - t0
     print(f"fixture: {genome.n_bins} bins, {len(genome.scaffolds)} scaffolds, "
           f"{N_CHROMS} chromosomes, {fixture_s:.1f} s to make and write")
-    argv = ["-part1", "-part2", "-part3", "-part4", "-config", config, "-device", "cuda"]
+    # one card even where several are visible: phases 9 and 10 compare
+    # their meshes and processes with this run
+    argv = ["-part1", "-part2", "-part3", "-part4", "-config", config, "-device", "cuda",
+            "-mesh", "off"]
     reset_launches()
     t0 = time.time()
     with open(LOG, "w") as log, contextlib.redirect_stdout(log):
@@ -379,7 +427,7 @@ def phase_device_mode(torch, np, workdir, paths, resolution, exact_cuts):
     t0 = time.time()
     try:
         with open(DEVICE_LOG, "w") as log, contextlib.redirect_stdout(log):
-            report = cli.main(["-part1", "-config", config, "-device", "cuda"])
+            report = cli.main(["-part1", "-config", config, "-device", "cuda", "-mesh", "off"])
     finally:
         part1_cluster.matrix.rank_matrix_desc = rank_desc
     total_s = time.time() - t0
@@ -404,6 +452,183 @@ def phase_device_mode(torch, np, workdir, paths, resolution, exact_cuts):
           "equal numpy's stable argsort, reversed")
 
 
+def phase_mesh_kernels(torch, np):
+    """The kernel with block offsets on phase 3's matrix and batches; returns
+    the largest difference from the plain version and the two times."""
+    from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp
+    from hic_genome_assembler_tpu_torch.ops import count_kernels as ck
+    from hic_genome_assembler_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda")
+    n = N_RANK
+    full = random_rank(torch, np, n, 0)
+    padded = ck.pad_rank(full)
+    starts, growing, fixed = kernel_batches(np, n)
+    max_err = 0
+    timing_blocks = None
+    for layout in MESH_LAYOUTS:
+        d, m = layout
+        # RankCounts' layout: block rows start on 128-byte boundaries
+        t = pm.pad_to_multiple(n, 32 * math.lcm(d, m))
+        mesh = pm.make_mesh(layout, [dev] * (d * m))
+        blocks = pm.place_blocks(mesh, [full], t, t, fill=-1)
+        rb, cb = t // d, t // m
+        for label, params in (("growing K=8", growing), ("fixed K=64", fixed)):
+            for i in range(d):
+                for j in range(m):
+                    got = ck.counts_many(blocks[i][j], params, row0=i * rb, col0=j * cb)
+                    want = ck.counts_many_plain(blocks[i][j], params, row0=i * rb, col0=j * cb)
+                    err = int((got.long() - want.long()).abs().max().item())
+                    max_err = max(max_err, err)
+                    check(err == 0, f"{layout} block ({i}, {j}), {label}: kernel differs from "
+                                    f"plain version (max abs err {err})")
+            summed = ck.counts_many_blocks(blocks, params, dev)[:, :n]
+            whole = ck.counts_many(padded, params)[:, :n]
+            check(torch.equal(summed, whole),
+                  f"{layout} {label}: the blocks' counts do not add up to one launch's")
+            print(f"kernel with offsets == plain on every {d}x{m} block of {rb}x{cb}, "
+                  f"{label}; block sums == one launch on {tuple(padded.shape)}")
+        if layout == (2, 2):
+            timing_blocks = blocks
+        else:
+            del blocks
+    torch.cuda.synchronize()
+
+    mesh = pm.make_mesh((2, 2), [dev] * 4)
+    local, sharded = bp.RankCounts(full, dev), bp.RankCounts(full, dev, mesh=mesh)
+    check(sharded.where == f"mesh 2x2 {dev}", f"virtual-mesh RankCounts lay on {sharded.where}")
+    pairs = [(s, c) for s, c, _flag in fixed]
+    sharded.prefetch_growing(starts)
+    sharded.prefetch_fixed_pairs(pairs)
+    for s in starts:
+        check(np.array_equal(sharded.growing(s), local.growing(s)),
+              f"virtual-mesh RankCounts growing({s}) differs from the single-device one")
+    for s, c in pairs:
+        check(np.array_equal(sharded.fixed(s, c), local.fixed(s, c)),
+              f"virtual-mesh RankCounts fixed({s}, {c}) differs from the single-device one")
+    print(f"virtual-mesh RankCounts ({sharded.where}) == single-device: {len(starts)} growing "
+          f"and {len(pairs)} fixed scans")
+    del local, sharded
+
+    mesh_ms = cuda_ms(torch, lambda: ck.counts_many_blocks(timing_blocks, growing, dev), 20)
+    single_ms = cuda_ms(torch, lambda: ck.counts_many(padded, growing), 20)
+    print(f"growing K=8 at n={n}: over the 2x2 blocks (4 launches, partials summed, rows "
+          f"gathered) {mesh_ms:.4f} ms; one launch {single_ms:.4f} ms")
+    del full, padded, timing_blocks
+    torch.cuda.empty_cache()
+    return max_err, mesh_ms, single_ms
+
+
+def phase_mesh_path(torch, workdir, main_dir, paths, resolution):
+    """Part 1 then part 2 on a virtual (2, 2) mesh of cuda:0, byte-equal to
+    phase 4; returns the counts kernel's launches in that run."""
+    from hic_genome_assembler_tpu_torch import cli
+    from hic_genome_assembler_tpu_torch import device as device_mod
+    from hic_genome_assembler_tpu_torch.ops import count_kernels
+    from hic_genome_assembler_tpu_torch.parallel import mesh as pm
+    from hic_genome_assembler_tpu_torch.parallel import runtime
+    from hic_genome_assembler_tpu_torch.utils import e2e
+
+    dev = device_mod.resolve("cuda")
+    config = e2e.write_config(os.path.join(workdir, "config.txt"), workdir, paths, resolution)
+    var = cli.load_config(config)
+    rt = runtime.RuntimeContext(pm.make_mesh((2, 2), [dev] * 4), 0, 1, dev)
+    reset_launches()
+    t0 = time.time()
+    with open(MESH_LOG, "w") as log, contextlib.redirect_stdout(log):
+        report = cli.run_parts(var, ["part1", "part2"], rt)
+    total_s = time.time() - t0
+    launches = count_kernels.LAUNCHES
+    echo_timers(MESH_LOG)
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in report.part_seconds.items())
+    print(f"mesh path ({rt.mesh.describe()}): {parts}; total {total_s:.1f} s; rank counts on "
+          f"{report.rank_counts_on}, {launches} kernel launches")
+    check(launches > 0, "the mesh path launched the rank-count kernel no time")
+    check(report.rank_counts_on == "mesh 2x2 " + str(dev),
+          f"mesh path rank counts lay on {report.rank_counts_on}")
+    runs = [("virtual 2x2", workdir)]
+    if torch.cuda.device_count() >= 2:
+        auto_dir = os.path.join(workdir, "auto")
+        auto_cfg = e2e.write_config(os.path.join(auto_dir, "config.txt"), auto_dir, paths,
+                                    resolution)
+        with open(MESH_LOG, "a") as log, contextlib.redirect_stdout(log):
+            auto = cli.main(["-part1", "-part2", "-config", auto_cfg, "-device", "cuda",
+                             "-mesh", "auto"])
+        auto_parts = ", ".join(f"{k} {v:.1f} s" for k, v in auto.part_seconds.items())
+        print(f"mesh path: -mesh auto over {torch.cuda.device_count()} cards, rank counts on "
+              f"{auto.rank_counts_on}; {auto_parts}")
+        runs.append(("-mesh auto", auto_dir))
+        print("mesh path ran: a virtual 2x2 mesh of one card, and -mesh auto over the cards")
+    else:
+        print("mesh path ran: a virtual 2x2 mesh of one card (1 card visible, -mesh auto "
+              "builds no mesh)")
+    for label, run_dir in runs:
+        for name in PART1_FILES + PART2_FILES:
+            check(filecmp.cmp(os.path.join(run_dir, "files", name),
+                              os.path.join(main_dir, "files", name), shallow=False),
+                  f"{label}: {name} differs from phase 4's")
+        print(f"mesh path ({label}): {len(PART1_FILES + PART2_FILES)} part-1 and part-2 files "
+              "byte-equal to phase 4's")
+    return launches
+
+
+def part2_wall(log_path):
+    with open(log_path) as log:
+        found = re.findall(r"Total run-time  for Part2 = ([0-9.]+)", log.read())
+    check(found, f"no part-2 wall in {log_path}")
+    return float(found[-1])
+
+
+def phase_ep(workdir, main_dir, paths, resolution):
+    """Two CLI processes share the card and part 2's chromosomes; the merged
+    files must equal phase 4's."""
+    from hic_genome_assembler_tpu_torch.utils import e2e
+
+    config = e2e.write_config(os.path.join(workdir, "config.txt"), workdir, paths, resolution)
+    shutil.copy(os.path.join(main_dir, "files", "chromosomeGroupings.txt"),
+                os.path.join(workdir, "files", "chromosomeGroupings.txt"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    env.pop("HIC_MESH", None)
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for rank in (0, 1):
+            logs.append(open(EP_LOG.format(rank), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", EP_CHILD, str(REPO), config],
+                stdout=logs[-1], stderr=subprocess.STDOUT, cwd=workdir,
+                env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
+            ))
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    total_s = time.time() - t0
+    for rank, p in enumerate(procs):
+        check(p.returncode == 0, f"EP rank {rank} exited with {p.returncode}; see "
+                                 f"{EP_LOG.format(rank)}")
+        with open(EP_LOG.format(rank)) as log:
+            check(f"- EP shard: process {rank}/2 owns" in log.read(),
+                  f"EP rank {rank} searched no shard")
+    for name in PART2_FILES:
+        check(filecmp.cmp(os.path.join(workdir, "files", name),
+                          os.path.join(main_dir, "files", name), shallow=False),
+              f"EP: merged {name} differs from phase 4's")
+    walls = [part2_wall(EP_LOG.format(rank)) for rank in (0, 1)]
+    print(f"EP: 2 processes, both done in {total_s:.1f} s; part-2 wall rank 0 "
+          f"{walls[0]:.2f} s (waits for rank 1 and merges), rank 1 {walls[1]:.2f} s; "
+          f"single process (phase 4) {part2_wall(LOG):.2f} s")
+    print(f"EP: merged {' and '.join(PART2_FILES)} byte-equal to phase 4's")
+
+
 def main():
     import torch
 
@@ -419,6 +644,13 @@ def main():
         hmm_launches = phase_hmm_path(torch, hmm_dir)
         # the rank-count record keeps phase 4's count; phase 7 checks its own
         phase_device_mode(torch, np, dev_dir, paths, resolution, exact_cuts)
+        offset_err, mesh_ms, single_ms = phase_mesh_kernels(torch, np)
+        record["max_abs_err"] = max(record["max_abs_err"], offset_err)
+        record.update(offset_max_abs_err=offset_err, mesh_2x2_ms=round(mesh_ms, 4),
+                      one_launch_ms=round(single_ms, 4))
+        record["mesh_launches"] = phase_mesh_path(
+            torch, os.path.join(workdir, "mesh"), main_dir, paths, resolution)
+        phase_ep(os.path.join(workdir, "ep"), main_dir, paths, resolution)
     for rec in hmm_records:
         rec["launches"] = hmm_launches[rec["name"]]
     print(json.dumps({"kernels": [record] + hmm_records}))

@@ -1,10 +1,14 @@
 """CLI entry point: ``python -m hic_genome_assembler_tpu_torch -part1 -part2
--part3 -part4 -config <file> [-device cuda|cpu]``.
+-part3 -part4 -config <file> [-device cuda|cpu] [-mesh auto|off|RxC]``.
 
 The same flags and run semantics as ``hic_genome_assembler_tpu.cli``: any
 combination of parts runs in order, total wall-clock printed at the end.
-Parts 1 and 2 run on the chosen torch device; parts 3 and 4 are host-only
-and are the JAX package's own jax-free drivers.
+Parts 1 and 2 run on the chosen torch device, or on the mesh that
+``parallel.runtime.bring_up`` builds; parts 3 and 4 are host-only and are
+the JAX package's own jax-free drivers.  Under ``torchrun`` (or with
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set) each
+process searches its shard of part 2's chromosomes and process 0 merges
+them.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import argparse
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from hic_genome_assembler_tpu.config import (
     ensure_all_variables_are_set,
@@ -61,6 +65,16 @@ def build_parser() -> argparse.ArgumentParser:
         choices=("cuda", "cpu"),
         default="cuda",
     )
+    parser.add_argument(
+        "-mesh",
+        help=(
+            "Device-mesh policy: 'auto' (mesh over all visible devices "
+            "when more than one), 'off', or an explicit RxC (data, model) "
+            "shape like '4x2'. Defaults to $HIC_MESH, then 'auto'."
+        ),
+        default=None,
+        type=str,
+    )
     return parser
 
 
@@ -68,16 +82,37 @@ def main(argv=None) -> RunReport:
     args = build_parser().parse_args(argv)
     start = time.time()
     from hic_genome_assembler_tpu.utils import hostmem
-    from hic_genome_assembler_tpu_torch import device as device_mod
+    from hic_genome_assembler_tpu_torch.parallel import distributed, runtime
 
     hostmem.tune()  # warm-page reuse for the multi-GB host matrices
-    var = read_config_file_to_variables(args.config)
+    var = load_config(args.config)
+    parts = [p for p in ("part1", "part2", "part3", "part4") if getattr(args, p)]
+    try:
+        rt = runtime.bring_up(args.mesh, args.device)
+        report = run_parts(var, parts, rt)
+    finally:
+        distributed.shutdown()
+    print("Total run-time = " + str(time.time() - start) + " seconds")
+    return report
+
+
+def load_config(path: str) -> Dict[str, object]:
+    """The variables of a config file, for :func:`run_parts`; exits when
+    one is unset."""
+    var = read_config_file_to_variables(path)
     if ensure_all_variables_are_set(var):
         sys.exit(1)
-    device = device_mod.resolve(args.device)
+    return var
+
+
+def run_parts(var: Dict[str, object], parts: Sequence[str], rt) -> RunReport:
+    """Run ``parts`` (a subset of ``part1``..``part4``, in that order) of a
+    read config ``var`` on the runtime context ``rt``
+    (``parallel.runtime.RuntimeContext``)."""
+    device, mesh = rt.device, rt.mesh
     report = RunReport()
 
-    if args.part1:
+    if "part1" in parts:
         from hic_genome_assembler_tpu_torch.models import part1_cluster as part1
 
         t0 = time.time()
@@ -89,10 +124,10 @@ def main(argv=None) -> RunReport:
             var["hyperGeom"], var["hmm"], var["minSize"], var["modularity"],
             var["louvainRounds"], var["psig"], var["convergenceRounds"],
             var["lookAhead"], var["resolution"], device,
-            matrix_mode=var["matrixMode"], hmm_mode=var["hmmMode"],
+            matrix_mode=var["matrixMode"], hmm_mode=var["hmmMode"], mesh=mesh,
         )
         report.part_seconds["part1"] = time.time() - t0
-    if args.part2:
+    if "part2" in parts:
         from hic_genome_assembler_tpu_torch.models import part2_order as part2
 
         t0 = time.time()
@@ -102,9 +137,14 @@ def main(argv=None) -> RunReport:
             var["savePlotsDirectory"], var["chromosomePlotSuffix"],
             var["fullGenomePlot"], var["fullGenomePlotTitle"], var["plotOrderFile"],
             var["nScaffolds"], var["scanScaffolds"], var["resolution"], device,
+            mesh=mesh, process_index=rt.process_index, process_count=rt.process_count,
         )
         report.part_seconds["part2"] = time.time() - t0
-    if args.part3:
+    if rt.process_count > 1 and not rt.is_primary and {"part3", "part4"} & set(parts):
+        # parts 3 and 4 read the merged order file that process 0 writes
+        print("- Parts 3 and 4 run on process 0 only")
+        return report
+    if "part3" in parts:
         from hic_genome_assembler_tpu.models import part3_orient as part3
 
         t0 = time.time()
@@ -114,7 +154,7 @@ def main(argv=None) -> RunReport:
             var["finalOrderingsFile"], var["lengthCutoff"], var["resolution"],
         )
         report.part_seconds["part3"] = time.time() - t0
-    if args.part4:
+    if "part4" in parts:
         from hic_genome_assembler_tpu.models import part4_fasta as part4
 
         t0 = time.time()
@@ -123,7 +163,6 @@ def main(argv=None) -> RunReport:
             var["assembledFastaFile"],
         )
         report.part_seconds["part4"] = time.time() - t0
-    print("Total run-time = " + str(time.time() - start) + " seconds")
     return report
 
 

@@ -5,9 +5,10 @@ decision functions (``find_matrix_pvalue_breakpoints``,
 ``pre_process_all_matrix_breakpoints``, ``filter_noisy_breakpoints``) are
 copied with their logic unchanged: they are pure numpy, but the JAX
 module that holds them imports ``jax.numpy``.  Only the counts backend
-differs: ``RankCounts`` keeps the padded rank matrix as a torch tensor and
-counts through ``ops.count_kernels`` (the CUDA kernel on a GPU tensor, its
-plain torch version on a CPU tensor).
+differs: ``RankCounts`` keeps the padded rank matrix as torch blocks (one
+block on one device, or the blocks of a mesh) and counts through
+``ops.count_kernels`` (the CUDA kernel on a GPU tensor, its plain torch
+version on a CPU tensor).
 
 Preserved quirks (as in the JAX package): the aggressive pass hardcodes
 psig=.05 regardless of config; the noise filter runs to fixpoint with a
@@ -16,6 +17,7 @@ large safety cap.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 
 from hic_genome_assembler_tpu.ops import hypergeom
 from hic_genome_assembler_tpu_torch.ops import count_kernels
+from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 
 
 def hyper_geom_sf(x, M, n, N) -> np.ndarray:
@@ -71,13 +74,6 @@ def _host_fixed_counts(rank_mat: np.ndarray, start: int, cut: int) -> np.ndarray
     return ((window >= start) & (window <= cut)).sum(axis=1).astype(np.int32)
 
 
-def _pow2_cols(start: int, cut: int) -> int:
-    """Column bucket a fixed window (start, cut) needs: the next power of
-    two of its width, at least one column tile."""
-    need = max(int(cut) - int(start), 1)
-    return max(1 << max(need - 1, 0).bit_length(), count_kernels._TILE_C)
-
-
 def _pow2_params(rows: List[Tuple[int, int, int]]) -> np.ndarray:
     """int32[Kp, 3] params with K padded to a power of two by repeating the
     last row (bounds the distinct batch shapes)."""
@@ -90,48 +86,67 @@ def _pow2_params(rows: List[Tuple[int, int, int]]) -> np.ndarray:
 
 
 class RankCounts:
-    """Device-resident padded rank matrix + cached count scans.
+    """Device-resident rank matrix blocks + cached count scans.
 
-    ``rank_mat`` is a numpy array or an integer torch tensor (device mode
-    ranks on the device).  Below ``_HOST_N`` rows the scans run on the host
-    in numpy, and a tensor is read back.  Above, the matrix is padded once
-    (``count_kernels.pad_rank`` layout) on ``device``; a tensor already
-    there is padded in place of a round trip through the host.  The path is
-    chosen by the padded tensor's device alone.
+    ``rank_mat`` is a numpy array, an integer torch tensor, or a list of
+    consecutive row pieces of one (device mode ranks on the device, per
+    mesh position).  Without a mesh, below ``_HOST_N`` rows the scans run
+    on the host in numpy and tensors are read back; above, the matrix is
+    one block on ``device`` (a 1x1 placement).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): ``_HOST_N`` is bypassed, as in the
+    JAX package, and the matrix is placed as ``(data, model)`` blocks.
+    Either way the matrix is square-padded with -1 to a multiple of
+    ``32 * lcm(data, model)`` (every block row starts on a 128-byte
+    boundary), and each tensor piece is copied into its blocks from where
+    it lies, without a trip through the host.  Every scan launches the counts kernel
+    on each block with its offsets; the model-axis partials are summed on
+    the row block's first device and the row blocks gathered on the mesh's
+    first device before any readback (``count_kernels.counts_many_blocks``).
+    The kernel's loop stops at each row's prefix end, so a fixed window
+    reads only its own columns.  Counts are integers: equal on every
+    placement.
     """
 
-    def __init__(self, rank_mat: Union[np.ndarray, torch.Tensor], device: torch.device):
-        self.n = rank_mat.shape[0]
+    def __init__(
+        self,
+        rank_mat: Union[np.ndarray, torch.Tensor, Sequence[torch.Tensor]],
+        device: torch.device,
+        mesh: Optional[pm.Mesh] = None,
+    ):
+        pieces = list(rank_mat) if isinstance(rank_mat, (list, tuple)) else [rank_mat]
+        self.n = sum(int(p.shape[0]) for p in pieces)
         self._host: Optional[np.ndarray] = None
-        self._dev: Optional[torch.Tensor] = None
+        self._blocks: List[List[torch.Tensor]] = []
         # (start,) / (start, cut) -> counts: the cut-noise filter re-requests
         # the same windows across its convergence rounds
         self._cache: Dict[tuple, np.ndarray] = {}
         # dispatched batches whose readback is deferred: (keys, device_out),
         # read back together when any of their keys is first consumed
         self._pending: List[tuple] = []
-        if self.n < _HOST_N:
-            if isinstance(rank_mat, torch.Tensor):
-                rank_mat = rank_mat.cpu().numpy()
-            self._host = np.asarray(rank_mat, dtype=np.int32)
+        if mesh is None and self.n < _HOST_N:
+            self.where = "host"
+            self._host = np.concatenate(
+                [np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p, dtype=np.int32)
+                 for p in pieces]
+            )
             return
-        if not isinstance(rank_mat, torch.Tensor):
-            rank_mat = torch.from_numpy(np.ascontiguousarray(rank_mat, dtype=np.int32))
-        self._dev = count_kernels.pad_rank(rank_mat.to(device))
-
-    @property
-    def where(self) -> str:
-        """``"host"`` for the numpy scans, else the tensor's device."""
-        return "host" if self._host is not None else str(self._dev.device)
+        self._mesh = pm.make_mesh((1, 1), devices=[device]) if mesh is None else mesh
+        t = pm.pad_to_multiple(self.n, 32 * math.lcm(*self._mesh.devices.shape))
+        pieces = [
+            p if isinstance(p, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(p))
+            for p in pieces
+        ]
+        self._blocks = pm.place_blocks(self._mesh, pieces, t, t, fill=-1, dtype=torch.int32)
+        # "cuda:0" for one block, else the mesh ("mesh 2x2 cuda:0")
+        self.where = str(self._blocks[0][0].device) if mesh is None else mesh.describe()
 
     # -- batched dispatch plumbing ---------------------------------------
 
-    def _dispatch_many(self, params: np.ndarray, mat: Optional[torch.Tensor] = None):
-        """One batched count launch for (start, cut, flag) rows; returns
-        the device tensor [Kp, n_rows], not read back.  ``mat`` may be a
-        column-sliced view of the padded matrix (sound for fixed windows,
-        which never read past their width)."""
-        return count_kernels.counts_many(self._dev if mat is None else mat, params)
+    def _dispatch_many(self, params: np.ndarray):
+        """One batched count launch per block for (start, cut, flag) rows;
+        returns the device tensor [Kp, n_rows], not read back."""
+        return count_kernels.counts_many_blocks(self._blocks, params, self._mesh.first)
 
     def _in_pending(self, key: tuple) -> bool:
         return any(key in keys for keys, _out in self._pending)
@@ -173,7 +188,7 @@ class RankCounts:
 
     def prefetch_fixed_pairs(self, pairs: Sequence[tuple], chunk: int = 2048) -> None:
         """Batch-load fixed counts for explicit (start, cut) pairs: one
-        launch + one readback per ``chunk`` and column bucket."""
+        launch per block + one readback per ``chunk``."""
         missing = []
         seen = set()
         for s, c in pairs:
@@ -184,63 +199,38 @@ class RankCounts:
         if not missing or self._host is not None:
             # host mode computes only the windows actually consulted
             return
-        if self._dev.device.type == "cpu":
+        if self._mesh.first.type == "cpu":
             # plain CPU counts: a batch only adds the pow2 padding rows
             for s, c in missing:
                 self.fixed(s, c)
             return
-        # a fixed window (s, c) only reads columns < c - s: group by pow2
-        # column need and launch on column-sliced views (no copy: the
-        # kernel takes the row stride)
-        buckets: Dict[int, List[tuple]] = {}
-        full_cols = int(self._dev.shape[1])
-        for s, c in missing:
-            b = _pow2_cols(s, c)
-            buckets.setdefault(full_cols if b >= full_cols else b, []).append((s, c))
-        for b, pairs_b in sorted(buckets.items()):
-            mat = self._dev if b == full_cols else self._dev[:, :b]
-            for ofs in range(0, len(pairs_b), chunk):
-                blk = pairs_b[ofs : ofs + chunk]
-                params = _pow2_params([(s, c, 0) for s, c in blk])
-                rows = self._dispatch_many(params, mat=mat)[: len(blk), : self.n].cpu().numpy()
-                for k2, row in zip(blk, rows):
-                    self._cache[k2] = np.ascontiguousarray(row, dtype=np.int32)
+        for ofs in range(0, len(missing), chunk):
+            blk = missing[ofs : ofs + chunk]
+            params = _pow2_params([(s, c, 0) for s, c in blk])
+            rows = self._dispatch_many(params)[: len(blk), : self.n].cpu().numpy()
+            for k2, row in zip(blk, rows):
+                self._cache[k2] = np.ascontiguousarray(row, dtype=np.int32)
+
+    def _scan(self, key: tuple, params: List[int], host_fn) -> np.ndarray:
+        """One count scan: cached, or read from a pending batch, or run on
+        the host or launched on the blocks."""
+        hit = self._cache.get(key)
+        if hit is not None:
+            return hit
+        if self._pending and self._materialize_pending(key):
+            return self._cache[key]
+        if self._host is not None:
+            out = host_fn(self._host, *key)
+        else:
+            out = self._dispatch_many(np.array([params]))[0, : self.n].cpu().numpy()
+        self._cache[key] = out
+        return out
 
     def growing(self, start: int) -> np.ndarray:
-        key = (int(start),)
-        hit = self._cache.get(key)
-        if hit is not None:
-            return hit
-        if self._pending and self._materialize_pending(key):
-            return self._cache[key]
-        if self._host is not None:
-            out = _host_growing_counts(self._host, int(start))
-        else:
-            out = count_kernels.growing_window_counts(self._dev, int(start), n=self.n)
-            out = out.cpu().numpy()
-        self._cache[key] = out
-        return out
+        return self._scan((int(start),), [int(start), 0, 1], _host_growing_counts)
 
     def fixed(self, start: int, cut: int) -> np.ndarray:
-        key = (int(start), int(cut))
-        hit = self._cache.get(key)
-        if hit is not None:
-            return hit
-        if self._pending and self._materialize_pending(key):
-            return self._cache[key]
-        if self._host is not None:
-            out = _host_fixed_counts(self._host, int(start), int(cut))
-        else:
-            # the window reads only columns < cut - start: scan its pow2
-            # column bucket, not the full matrix
-            mat = self._dev
-            b = _pow2_cols(start, cut)
-            if b < int(mat.shape[1]):
-                mat = mat[:, :b]
-            out = count_kernels.fixed_window_counts(mat, int(start), int(cut), n=self.n)
-            out = out.cpu().numpy()
-        self._cache[key] = out
-        return out
+        return self._scan((int(start), int(cut)), [int(start), int(cut), 0], _host_fixed_counts)
 
     def prefetch_fixed(self, start: int, cuts: Sequence[int]) -> None:
         """Batch-load fixed counts for every (start, cut) not yet cached."""

@@ -9,6 +9,12 @@
 //     hi = i    when flag == 1   (growing-window scan)
 //     hi = cut  when flag == 0   (fixed window of the cut-noise filter)
 //
+// R may be one block of a larger matrix whose top-left element is the
+// global (row0, col0): then i = row0 + row and j = col0 + col, and the block
+// counts only its own columns.  The partial counts of a row's blocks along
+// the mesh's model axis add up to the row's count; offsets of 0 give the
+// whole-matrix counts.
+//
 // Pad entries of R are -1 (or 65535 widened from a uint16 upload); neither
 // lies in [start, hi] for any row of a matrix with n < 65535, so padding
 // never counts.
@@ -36,7 +42,7 @@ constexpr int kWarpsPerBlock = 8;
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 rank_counts_kernel(const int32_t* __restrict__ R, int64_t ld, int n_rows,
-                   int n_cols, const int32_t* __restrict__ params,
+                   int n_cols, int row0, int col0, const int32_t* __restrict__ params,
                    int32_t* __restrict__ out) {
   const int k = blockIdx.y;
   const int lane = threadIdx.x & 31;
@@ -45,8 +51,10 @@ rank_counts_kernel(const int32_t* __restrict__ R, int64_t ld, int n_rows,
 
   const int start = params[3 * k];
   const int cut = params[3 * k + 1];
-  const int hi = params[3 * k + 2] == 1 ? row : cut;
-  const int64_t prefix_end = static_cast<int64_t>(hi) - start;
+  const int hi = params[3 * k + 2] == 1 ? row0 + row : cut;
+  // columns of this block that lie in the prefix j < hi - start, in int64
+  // so that a block past the prefix end clamps to zero iterations
+  const int64_t prefix_end = static_cast<int64_t>(hi) - start - col0;
   const int end = prefix_end <= 0 ? 0
                   : (prefix_end < n_cols ? static_cast<int>(prefix_end) : n_cols);
 
@@ -63,16 +71,19 @@ rank_counts_kernel(const int32_t* __restrict__ R, int64_t ld, int n_rows,
 
 }  // namespace
 
-// R: int32 rows with row stride ld (elements) and unit column stride;
+// R: int32 rows with row stride ld (elements) and unit column stride, the
+// block of a matrix whose top-left element is the global (row0, col0);
 // params: int32[K, 3]; out: int32[K, n_rows].  All pointers on the device.
 // Launches on `stream` and returns the launch status; does not synchronise.
 extern "C" int rank_counts(const int32_t* R, int64_t ld, int n_rows, int n_cols,
-                           const int32_t* params, int K, int32_t* out,
-                           cudaStream_t stream) {
+                           int row0, int col0, const int32_t* params, int K,
+                           int32_t* out, cudaStream_t stream) {
   if (n_rows <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
-  if (K > 65535 || n_cols < 0 || ld < n_cols) return static_cast<int>(cudaErrorInvalidValue);
+  if (K > 65535 || n_cols < 0 || ld < n_cols || row0 < 0 || col0 < 0 ||
+      static_cast<int64_t>(row0) + n_rows > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock, K);
-  rank_counts_kernel<<<grid, kWarpsPerBlock * 32, 0, stream>>>(R, ld, n_rows, n_cols,
-                                                                params, out);
+  rank_counts_kernel<<<grid, kWarpsPerBlock * 32, 0, stream>>>(R, ld, n_rows, n_cols, row0,
+                                                                col0, params, out);
   return static_cast<int>(cudaGetLastError());
 }

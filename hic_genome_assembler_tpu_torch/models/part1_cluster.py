@@ -7,7 +7,8 @@ transform, UPGMA, the f64 similarity, log and (exact mode) rank matrix and
 the Louvain tail are the JAX package's host modules, reused.  On the given
 torch device run: the rank-count scans of the breakpoint search (the port's
 ``RankCounts``), the rank argsort in device mode (``ops/matrix.py``) and
-the HMM fits of the HMM branch (``cluster/hmm_cuts.py``).
+the HMM fits of the HMM branch (``cluster/hmm_cuts.py``), on one device or,
+for the rank matrix, on the blocks of a mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from hic_genome_assembler_tpu.ops import oracle
 from hic_genome_assembler_tpu.utils import profiling
 from hic_genome_assembler_tpu_torch.cluster import breakpoints, hmm_cuts
 from hic_genome_assembler_tpu_torch.ops import matrix
+from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 from hic_genome_assembler_tpu_torch.utils import plots
 
 
@@ -214,6 +216,7 @@ def run_pipeline(
     louvain_seed: int = 0,
     matrix_mode: str = "exact",
     hmm_mode: str = "fast",
+    mesh: Optional[pm.Mesh] = None,
 ) -> Tuple[Optional[str], List[int]]:
     """Part 1 on ``device``.  Returns where the rank-count scans ran
     (``RankCounts.where``: ``"host"`` or the torch device; ``None`` when
@@ -227,7 +230,11 @@ def run_pipeline(
     differ, and numpy's tie order is its own.
 
     ``hmm_mode`` (``hmm`` only, when ``hyper_geom`` is off): ``fast`` or
-    ``exact``, as ``ops/gaussian_hmm.GaussianHMM2`` describes."""
+    ``exact``, as ``ops/gaussian_hmm.GaussianHMM2`` describes.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the rank-count scans run on the
+    mesh's blocks (integer counts, equal to the single-device ones), and in
+    device mode the rows are ranked per mesh position."""
     print("########################################")
     print("### Working on Part1 of the pipeline ###")
     total_start = time.time()
@@ -264,13 +271,22 @@ def run_pipeline(
             adj = oracle.to_similarity(adj, row_sums)
             if matrix_mode == "device":
                 # the order-preserving f32 cast of the host f64 similarity
-                # is ranked on the device and stays there
-                sim32 = torch.from_numpy(adj.astype(np.float32)).to(device)
-                rank_mat = matrix.rank_matrix_desc(sim32)
-                del sim32
+                # is ranked on the device: each mesh position (or the one
+                # device) ranks its row block, and the blocks, cut back to
+                # n rows, stay where they lie for the counts
+                n_bins = adj.shape[0]
+                place = pm.make_mesh((1, 1), devices=[device]) if mesh is None else mesh
+                blocks, _ = pm.put_rows_padded(place, adj.astype(np.float32))
+                rb = blocks[0].shape[0]
+                rank_mat = [
+                    matrix.rank_matrix_desc(b)[: n_bins - k * rb]
+                    for k, b in enumerate(blocks)
+                    if k * rb < n_bins
+                ]
+                del blocks
             else:
                 rank_mat = oracle.rank_matrix_desc(adj)
-            counts = breakpoints.RankCounts(rank_mat, device)
+            counts = breakpoints.RankCounts(rank_mat, device, mesh=mesh)
             del rank_mat
             initial = breakpoints.pre_process_all_matrix_breakpoints(
                 counts, min_size=min_size, min_frac=modularity, psig=psig

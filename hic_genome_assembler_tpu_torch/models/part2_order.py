@@ -13,8 +13,12 @@ numpy copies.  ``_run_interleaved`` advances many chromosomes round-robin
 so that one chromosome's device work overlaps the others' host decisions;
 decisions are exactly the serial ones.
 
-Chromosome-level sharding across processes (the JAX package's
-``process_index`` / ``process_count``) is not ported yet.
+With a mesh (``parallel.mesh.Mesh``) the genome matrix is staged as
+``(data, model)`` blocks and candidate batches are split over the data
+axis.  With ``process_count`` > 1 each process searches its round-robin
+shard of the chromosomes and writes a shard file; process 0 waits for the
+shards that carry this run's fingerprint, merges them and writes the
+order and plot-order files (``parallel.distributed``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from hic_genome_assembler_tpu.io import filebus, hicpro
 from hic_genome_assembler_tpu.ops import perms
 from hic_genome_assembler_tpu.utils import profiling
 from hic_genome_assembler_tpu_torch.ops import cost as cost_ops
+from hic_genome_assembler_tpu_torch.parallel import distributed
+from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 from hic_genome_assembler_tpu_torch.utils import plots
 
 
@@ -85,30 +91,58 @@ def get_chromosome_outline_coords(genome_order: List[List[Scaffold]]) -> List[in
 class _ChromosomeContext:
     """Full-genome matrix + binID -> row index lookup.
 
-    The genome matrix is staged on the device once (float32); chromosome
-    submatrices are gathered there (``gather_device``), so a chromosome's
-    scorer never copies its matrix from the host."""
+    The genome matrix is staged once (float32) as the ``(data, model)``
+    blocks of the mesh, or as one block on ``device`` without one
+    (``put_matrix_padded``); chromosome submatrices are assembled from the
+    blocks on the placement's first device, the context's ``device``
+    (``gather_device``), so a chromosome's scorer never copies its matrix
+    from the host."""
 
-    def __init__(self, matrix: np.ndarray, bin_list: List[hicpro.Bin], device: torch.device):
+    def __init__(
+        self,
+        matrix: np.ndarray,
+        bin_list: List[hicpro.Bin],
+        device: torch.device,
+        mesh: Optional[pm.Mesh] = None,
+    ):
         self.matrix = np.asarray(matrix, dtype=np.float64)
         self.bin_index = {b.ID: i for i, b in enumerate(bin_list)}
-        self.device = device
-        self._device_matrix: Optional[torch.Tensor] = None
+        self.mesh = mesh
+        # where the matrix's blocks lie: the mesh, or one block on device
+        self._place = pm.make_mesh((1, 1), devices=[device]) if mesh is None else mesh
+        self.device = self._place.first
+        self._blocks: Optional[List[List[torch.Tensor]]] = None
 
     def gather(self, bin_ids: Sequence[int]) -> np.ndarray:
         idx = [self.bin_index[b] for b in bin_ids]
         return self.matrix[np.ix_(idx, idx)]
 
     def gather_device(self, bin_ids: Sequence[int]) -> torch.Tensor:
-        """Device-resident float32 submatrix for the given bins."""
-        if self._device_matrix is None:
-            self._device_matrix = torch.from_numpy(
-                self.matrix.astype(np.float32)
-            ).to(self.device)
-        idx = torch.from_numpy(
-            np.fromiter((self.bin_index[b] for b in bin_ids), dtype=np.int64)
-        ).to(self.device)
-        return self._device_matrix.index_select(0, idx).index_select(1, idx)
+        """The float32 submatrix for the given bins on ``device``, from the
+        matrix's blocks: each block selects the requested rows and columns
+        it holds, and the pieces are written into place."""
+        idx = np.fromiter((self.bin_index[b] for b in bin_ids), dtype=np.int64)
+        if self._blocks is None:
+            self._blocks, _n = pm.put_matrix_padded(self._place, self.matrix.astype(np.float32))
+        rb, cb = self._blocks[0][0].shape
+        out = torch.empty((idx.size, idx.size), dtype=torch.float32, device=self.device)
+        for i, row_blocks in enumerate(self._blocks):
+            rsel = np.nonzero(idx // rb == i)[0]
+            if not rsel.size:
+                continue
+            for j, blk in enumerate(row_blocks):
+                csel = np.nonzero(idx // cb == j)[0]
+                if not csel.size:
+                    continue
+                rloc = torch.from_numpy(idx[rsel] - i * rb).to(blk.device)
+                cloc = torch.from_numpy(idx[csel] - j * cb).to(blk.device)
+                piece = blk.index_select(0, rloc).index_select(1, cloc).to(self.device)
+                if rsel.size == csel.size == idx.size:
+                    return piece  # one block holds every requested bin
+                r_d = torch.from_numpy(rsel).to(self.device)
+                c_d = torch.from_numpy(csel).to(self.device)
+                out[r_d[:, None], c_d[None, :]] = piece
+        return out
 
 
 def _to_host(handles) -> list:
@@ -475,6 +509,7 @@ def _order_chromosome_coro(
             ctx.device,
             device_sub=ctx.gather_device(canonical_bins),
             stats=stats,
+            mesh=ctx.mesh,
         )
     head_ids = list(range(min(n_scaffolds, len(scaffold_list))))
     tail_ids = list(range(len(head_ids), len(scaffold_list)))
@@ -504,6 +539,19 @@ def _order_chromosome_coro(
     return ordered
 
 
+def order_chromosome(
+    chrom_group: Sequence[Sequence],
+    ctx: _ChromosomeContext,
+    n_scaffolds: int = 6,
+    scan_scaffolds: int = 5,
+    stats: Optional[cost_ops.PrecisionStats] = None,
+) -> List[Scaffold]:
+    """One chromosome's full search, run serially: brute force, greedy
+    insertion and the sliding window against one pair-profile table."""
+    stats = cost_ops.PrecisionStats() if stats is None else stats
+    return _drive(_order_chromosome_coro(chrom_group, ctx, stats, n_scaffolds, scan_scaffolds))
+
+
 def order_genome(
     matrix: np.ndarray,
     chrom_list: List[List[List[object]]],
@@ -516,13 +564,21 @@ def order_genome(
     save_plot_dir: Optional[str] = None,
     plot_title_suffix: Optional[str] = None,
     stats: Optional[cost_ops.PrecisionStats] = None,
-) -> List[List[Scaffold]]:
+    mesh: Optional[pm.Mesh] = None,
+    chrom_indices: Optional[Sequence[int]] = None,
+) -> List[Optional[List[Scaffold]]]:
     """All chromosomes, interleaved so that their device work overlaps.
     ``stats`` collects the run's fast-vs-exact observations (a fresh
-    ``PrecisionStats`` when omitted)."""
+    ``PrecisionStats`` when omitted).
+
+    ``chrom_indices``: the chromosome shard of this process in an EP run
+    (``distributed.shard_chromosomes``); only those chromosomes are
+    searched, and the returned list holds ``None`` for the others so that
+    global numbering is kept for the shard writer."""
     start = time.time()
     stats = cost_ops.PrecisionStats() if stats is None else stats
-    ctx = _ChromosomeContext(matrix, bin_list, device)
+    ctx = _ChromosomeContext(matrix, bin_list, device, mesh=mesh)
+    owned = set(range(len(chrom_list))) if chrom_indices is None else set(chrom_indices)
 
     def _with_header(i, chrom_group):
         print("#####################\n#####################")
@@ -532,11 +588,15 @@ def order_genome(
         )
         return result
 
-    coros = [_with_header(i, group) for i, group in enumerate(chrom_list)]
-    genome_order = _run_interleaved(coros)
+    owned_order = [i for i in range(len(chrom_list)) if i in owned]
+    results = _run_interleaved([_with_header(i, chrom_list[i]) for i in owned_order])
+    by_index = dict(zip(owned_order, results))
+    genome_order = [by_index.get(i) for i in range(len(chrom_list))]
 
     if plot_chrom and save_plot_dir and plots.available():
         for i, chrom_order in enumerate(genome_order):
+            if chrom_order is None:
+                continue
             name = "Chr_" + str(i + 1)
             plots.plot_contact_map(
                 ctx.gather([b for s in chrom_order for b in s.bin_seq]),
@@ -554,6 +614,44 @@ def order_genome(
     return genome_order
 
 
+def _reconstruct_genome_order(
+    chrom_list: List[List[List[object]]], order_file: str
+) -> List[List[Scaffold]]:
+    """The whole genome order (Scaffolds with bin sequences) from a merged
+    chromosome-order file and the part-1 groups: orientation determines
+    the bin sequence, so the merging process can write the plot order of
+    chromosomes it did not search."""
+    orderings = filebus.read_chromosome_ordering(order_file)
+    genome_order: List[List[Scaffold]] = []
+    for chrom_group, ordering in zip(chrom_list, orderings):
+        _, by_name = initiate_bins_and_scaffolds(chrom_group)
+        ordered = []
+        for name, orientation in ordering:
+            s = by_name[name]
+            s.orientation = orientation
+            ordered.append(s)
+        genome_order.append(ordered)
+    return genome_order
+
+
+def _wait_for_shards(
+    paths: Sequence[str], fingerprint: str, timeout_s: float, poll_s: float = 0.5
+) -> None:
+    """Barrier on shard files that carry this run's fingerprint: a
+    leftover file with another header (or none) counts as missing until
+    its owner overwrites it."""
+    deadline = time.time() + timeout_s
+    while True:
+        missing = [p for p in paths if distributed.shard_fingerprint(p) != fingerprint]
+        if not missing:
+            return
+        if time.time() > deadline:
+            raise TimeoutError(
+                f"shards with run fingerprint {fingerprint!r} never appeared: {missing}"
+            )
+        time.sleep(poll_s)
+
+
 def run_pipeline(
     hic_pro_bed_file: str,
     hic_pro_bias_file: str,
@@ -569,8 +667,20 @@ def run_pipeline(
     scan_scaffolds: int,
     resolution: int,
     device: torch.device,
+    mesh: Optional[pm.Mesh] = None,
+    process_index: int = 0,
+    process_count: int = 1,
+    shard_wait_s: float = 3600.0,
 ) -> cost_ops.PrecisionStats:
-    """Part 2 on ``device``; returns the run's precision statistics."""
+    """Part 2 on ``device`` (or on ``mesh``); returns the run's precision
+    statistics.
+
+    ``process_index`` / ``process_count``: chromosome sharding across
+    processes (EP).  Each process searches its round-robin shard and writes
+    ``chromosome_order_file + '.shard<p>'`` atomically; processes other
+    than 0 then return, and process 0 waits up to ``shard_wait_s`` for the
+    shards carrying this run's fingerprint, merges them and writes the
+    order and plot-order files, as in the JAX package."""
     print("########################################")
     print("### Working on Part2 of the pipeline ###")
     start = time.time()
@@ -581,6 +691,27 @@ def run_pipeline(
         bin_list = hicpro.initiate_loci(hic_pro_bed_file, hic_pro_bias_file, binID_dict=bin_dict)
         adj = hicpro.build_adjacency_matrix(hic_pro_matrix_file, bin_list)
         chrom_list = filebus.read_chroms_from_file(chromosome_group_file)
+
+    chrom_indices = None
+    run_fp = None
+    if process_count > 1:
+        # Each rank removes its own stale shard; every other leftover is
+        # ignored by the barrier unless it carries this run's fingerprint
+        # (a deterministic run with identical inputs writes the same bytes).
+        run_fp = distributed.run_fingerprint(
+            chromosome_group_file, n_scaffolds, scan_scaffolds, resolution, process_count,
+            data_files=(hic_pro_bed_file, hic_pro_bias_file, hic_pro_matrix_file),
+        )
+        try:
+            os.remove(chromosome_order_file + f".shard{process_index}")
+        except FileNotFoundError:
+            pass
+        chrom_indices = distributed.shard_chromosomes(len(chrom_list), process_index, process_count)
+        print(
+            "- EP shard: process {}/{} owns chromosomes {}".format(
+                process_index, process_count, [c + 1 for c in chrom_indices]
+            )
+        )
 
     genome_order = order_genome(
         adj,
@@ -594,7 +725,35 @@ def run_pipeline(
         save_plot_dir=save_plots_directory,
         plot_title_suffix=chromosome_plot_suffix,
         stats=stats,
+        mesh=mesh,
+        chrom_indices=chrom_indices,
     )
+
+    if process_count > 1:
+        shard_path = chromosome_order_file + f".shard{process_index}"
+        distributed.write_shard_orderings(
+            {
+                i + 1: [(s.name, s.orientation) for s in group]
+                for i, group in enumerate(genome_order)
+                if group is not None
+            },
+            shard_path,
+            fingerprint=run_fp,
+        )
+        if process_index != 0:
+            print("Total run-time  for Part2 = " + str(time.time() - start))
+            print("- " + stats.summary())
+            print(
+                "- Part 2 shard {} written; process 0 merges the canonical "
+                "order file".format(shard_path)
+            )
+            return stats
+        shard_files = [chromosome_order_file + f".shard{p}" for p in range(process_count)]
+        _wait_for_shards(shard_files, run_fp, shard_wait_s)
+        distributed.merge_shard_orderings(
+            shard_files, len(chrom_list), chromosome_order_file, fingerprint=run_fp
+        )
+        genome_order = _reconstruct_genome_order(chrom_list, chromosome_order_file)
 
     if full_genome_plot and plots.available():
         outline = get_chromosome_outline_coords(genome_order)

@@ -102,6 +102,8 @@ def library() -> ctypes.CDLL:
         ctypes.c_int64,    # row stride (elements)
         ctypes.c_int,      # n_rows
         ctypes.c_int,      # n_cols
+        ctypes.c_int,      # row0: global row of the block's first row
+        ctypes.c_int,      # col0: global column of the block's first column
         ctypes.c_void_p,   # const int32_t* params [K, 3]
         ctypes.c_int,      # K
         ctypes.c_void_p,   # int32_t* out [K, n_rows]

@@ -18,6 +18,12 @@ The device side is plain torch in this package.  The host float64
 bookkeeping and the decision rules are copied from the JAX module, which
 imports jax; ``PrecisionStats`` is an object each run creates and passes,
 not a process-wide global.
+
+With a mesh (``parallel.mesh.Mesh``), candidate batches are split over its
+data axis with the JAX package's padding rule, the table and the small
+index tensors are replicated to each data-axis device, and every block's
+scores are gathered on the mesh's first device before any selection or
+readback, so that the top-k groups are the JAX mesh path's.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as tnf
 
 from hic_genome_assembler_tpu.ops import oracle
+from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -208,13 +215,6 @@ def _block_score_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1: int):
     return f_vals @ e_onehot + c0
 
 
-def _block_score_topk_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1: int, k: int):
-    """Block scores + selection on the device: only 3k scalars leave it.
-    See ``_group_argmax`` for the guarantees."""
-    costs = _block_score_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1)
-    return _group_argmax(costs.reshape(-1), k)
-
-
 def _group_argmax(flat: torch.Tensor, k: int):
     """Per-group (max, argmax, second-max) over k contiguous groups.
 
@@ -348,11 +348,6 @@ def _combo_score_kernel(F_flat, idx4, cid, E, c0):
     return vals.reshape(Bo, P * 4) @ E.reshape(P * 4, -1) + c0
 
 
-def _combo_score_topk_kernel(F_flat, idx4, cid, E, c0, k: int):
-    costs = _combo_score_kernel(F_flat, idx4, cid, E, c0)
-    return _group_argmax(costs.reshape(-1), k)
-
-
 def _pair_score_kernel(F_flat, sizes, orders, orients, pi, pj, c0, Cp1: int):
     """Per-candidate (order, orientation) scores: orders and orients are
     both [B, W].  Pad slots (id with size 0) contribute zero rows of F and
@@ -383,7 +378,9 @@ class ChromosomeScorer:
     ``device_sub``: optional float32 copy of ``sub_matrix`` already on the
     device (sliced from the genome matrix by the part-2 driver);
     ``sub_matrix`` is still required for the f64 host bookkeeping.
-    ``stats``: the run's ``PrecisionStats``.
+    ``stats``: the run's ``PrecisionStats``.  ``mesh``: candidate batches
+    are split over its data axis (see the module docstring); the table is
+    built on the mesh's first device, which ``device`` is then taken as.
     """
 
     def __init__(
@@ -394,8 +391,10 @@ class ChromosomeScorer:
         dtype=np.float32,
         device_sub: Optional[torch.Tensor] = None,
         stats: Optional["PrecisionStats"] = None,
+        mesh: Optional[pm.Mesh] = None,
     ):
-        self.device = torch.device(device)
+        self._mesh = mesh
+        self.device = mesh.first if mesh is not None else torch.device(device)
         self._dtype = np.dtype(dtype)
         self.stats = PrecisionStats() if stats is None else stats
         tdtype = _torch_dtype(self._dtype)
@@ -440,7 +439,7 @@ class ChromosomeScorer:
         dev = self.device
         if device_sub is None:
             device_sub = torch.from_numpy(sub.astype(self._dtype)).to(dev)
-        device_sub = device_sub.to(tdtype)
+        device_sub = device_sub.to(dev, tdtype)
         pad_c = self.C_pad - self.C
         sizes_padded = np.zeros(self.Sp, dtype=np.int64)
         sizes_padded[: self.S] = self.sizes
@@ -535,9 +534,49 @@ class SubsetScorer:
         self._F_flat = F.reshape(-1)
         self._sizes_d = parent._sizes_d
         self._c0_d = torch.tensor(self.c0, dtype=self._F_flat.dtype, device=self.device)
+        self._mesh = parent._mesh
+        self._F_r, self._sizes_r, self._c0_r = (
+            self._rep(t) for t in (self._F_flat, self._sizes_d, self._c0_d)
+        )
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
+
+    @property
+    def _data_devices(self) -> List[torch.device]:
+        return [self.device] if self._mesh is None else self._mesh.data_devices
+
+    def _rep(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """``t`` on each data-axis device (``[t]`` without a mesh)."""
+        return [t.to(dev) for dev in self._data_devices]
+
+    def _blocks(self, batch: np.ndarray) -> List[torch.Tensor]:
+        """A candidate batch as one block per data-axis device, padded by
+        repeating its last row (``put_batch_padded``)."""
+        if self._mesh is None:
+            return [self._put(batch)]
+        return pm.put_batch_padded(self._mesh, np.ascontiguousarray(batch, dtype=np.int64))[0]
+
+    def _gather(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        return outs[0] if len(outs) == 1 else pm.gather(outs, self.device)
+
+    def _map_blocks(self, score: Callable, batches: Sequence[np.ndarray]) -> torch.Tensor:
+        """``score(i, *blocks)`` on each data-axis position ``i`` over the
+        batches' blocks, the results gathered on ``self.device``."""
+        return self._gather(
+            [score(i, *blks) for i, blks in enumerate(zip(*map(self._blocks, batches)))]
+        )
+
+    def _block_costs(self, chunk: np.ndarray, e_r, pi_r, pj_r) -> torch.Tensor:
+        """``_block_score_kernel`` over a chunk of orders: [rows, R], with
+        the mesh's padding rows at the end."""
+        return self._map_blocks(
+            lambda i, blk: _block_score_kernel(
+                self._F_r[i], self._sizes_r[i], blk, e_r[i], pi_r[i], pj_r[i],
+                self._c0_r[i], self.C + 1,
+            ),
+            [chunk],
+        )
 
     def score_batch(
         self, orders: np.ndarray, orients: np.ndarray, chunk_orders: int = 2048
@@ -549,18 +588,15 @@ class SubsetScorer:
         if self.degenerate:
             return np.zeros(Bo * R, dtype=np.float64)
         pi, pj = np.triu_indices(S, k=1)
-        e_d = torch.from_numpy(_orient_onehot(S, orients, self.parent._dtype)).to(self.device)
-        pi_d, pj_d = self._put(pi), self._put(pj)
+        e_r = self._rep(torch.from_numpy(_orient_onehot(S, orients, self.parent._dtype)))
+        pi_r, pj_r = self._rep(self._put(pi)), self._rep(self._put(pj))
         out = np.empty((Bo, R), dtype=np.float64)
         handles = []
         for ofs in range(0, Bo, chunk_orders):
             chunk = orders[ofs : ofs + chunk_orders]
-            handles.append((ofs, chunk.shape[0], _block_score_kernel(
-                self._F_flat, self._sizes_d, self._put(chunk), e_d, pi_d, pj_d,
-                self._c0_d, self.C + 1,
-            )))
+            handles.append((ofs, chunk.shape[0], self._block_costs(chunk, e_r, pi_r, pj_r)))
         for ofs, n_real, scored in handles:
-            out[ofs : ofs + n_real] = _host(scored)
+            out[ofs : ofs + n_real] = _host(scored)[:n_real]
         return out.reshape(-1)
 
     def score_batch_topk(
@@ -599,8 +635,8 @@ class SubsetScorer:
         if 2 <= S <= 8 and len(np.unique(orders[0])) == S:
             return self._score_topk_combo_async(orders, orients, e_onehot, k)
         pi, pj = np.triu_indices(S, k=1)
-        pi_d, pj_d = self._put(pi), self._put(pj)
-        e_d = torch.from_numpy(e_onehot).to(self.device)
+        pi_r, pj_r = self._rep(self._put(pi)), self._rep(self._put(pj))
+        e_r = self._rep(torch.from_numpy(e_onehot))
         handles: List[torch.Tensor] = []
         meta: List[Tuple[int, int, int]] = []  # (ofs, n_real, kk)
         for ofs in range(0, Bo, chunk_orders):
@@ -612,11 +648,10 @@ class SubsetScorer:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], chunk_orders - n_real, axis=0)]
                 )
-            vals, idx, second = _block_score_topk_kernel(
-                self._F_flat, self._sizes_d, self._put(chunk), e_d,
-                pi_d, pj_d, self._c0_d, self.C + 1, min(k, chunk.shape[0] * R),
-            )
-            handles.extend((vals, idx, second))
+            costs = self._block_costs(chunk, e_r, pi_r, pj_r)
+            # groups over the mesh-padded scores, as in the JAX mesh path;
+            # padding rows are dropped in finish
+            handles.extend(_group_argmax(costs.reshape(-1), min(k, chunk.shape[0] * R)))
             meta.append((ofs, n_real, min(k, n_real * R)))
 
         def finish(host):
@@ -673,22 +708,22 @@ class SubsetScorer:
         R = orients.shape[0]
         P = S * (S - 1) // 2
         combo = _combo_index(orders.astype(np.int64))
-        dev_key = str(self.device)
+        dev_key = tuple(map(str, self._data_devices))
         ek = ("E_dev", dev_key, e_onehot.tobytes())
         if ek not in combo:
-            combo[ek] = torch.from_numpy(e_onehot.reshape(P, 4, R)).to(self.device)
+            combo[ek] = self._rep(torch.from_numpy(e_onehot.reshape(P, 4, R)))
         ck = ("cid_dev", dev_key)
         if ck not in combo:
-            combo[ck] = self._put(combo["cid"])
+            combo[ck] = self._blocks(combo["cid"])
+        E_r, cid_blocks = combo[ek], combo[ck]
+        idx4_r = self._rep(self._put(self._combo_f_indices(combo)))
+        costs = self._gather([
+            _combo_score_kernel(self._F_r[i], idx4_r[i], cid, E_r[i], self._c0_r[i])
+            for i, cid in enumerate(cid_blocks)
+        ])
+        n_pad = costs.shape[0]
         kk = min(k, Bo * R)
-        vals_d, idx_d, second_d = _combo_score_topk_kernel(
-            self._F_flat,
-            self._put(self._combo_f_indices(combo)),
-            combo[ck],
-            combo[ek],
-            self._c0_d,
-            kk,
-        )
+        vals_d, idx_d, second_d = _group_argmax(costs.reshape(-1), min(k, n_pad * R))
 
         def finish(host):
             vals, idx, second = host[0], host[1], host[2]
@@ -696,6 +731,14 @@ class SubsetScorer:
             sec = second[np.isfinite(second)]
             if sec.size:
                 floor = max(floor, float(sec.max()))
+            keep = idx < Bo * R  # drop mesh-padding rows
+            if (~keep).any():  # pad rows duplicate the last real candidate
+                floor = max(floor, float(vals[~keep].max()))
+            idx, vals = idx[keep], vals[keep]
+            if len(idx) > kk:
+                top = np.argsort(-vals, kind="stable")
+                floor = max(floor, float(vals[top[kk]]))
+                idx, vals = idx[top[:kk]], vals[top[:kk]]
             return idx, vals, floor
 
         return (vals_d, idx_d, second_d), finish
@@ -713,15 +756,12 @@ class SubsetScorer:
         if self.degenerate:
             return (), lambda host: np.zeros(B, dtype=np.float64)
         pi, pj = np.triu_indices(W, k=1)
-        out = _pair_score_kernel(
-            self._F_flat,
-            self._sizes_d,
-            self._put(orders),
-            self._put(orients),
-            self._put(pi),
-            self._put(pj),
-            self._c0_d,
-            self.C + 1,
+        pi_r, pj_r = self._rep(self._put(pi)), self._rep(self._put(pj))
+        out = self._map_blocks(
+            lambda i, o, r: _pair_score_kernel(
+                self._F_r[i], self._sizes_r[i], o, r, pi_r[i], pj_r[i], self._c0_r[i], self.C + 1,
+            ),
+            [orders, orients],
         )
         return (out,), lambda host: np.asarray(host[0], dtype=np.float64)[:B]
 

@@ -9,6 +9,12 @@ params row ``(start, cut, flag)`` and every row ``i`` of the rank matrix:
 with ``hi = i`` for a growing scan (flag 1) and ``hi = cut`` for a fixed
 window (flag 0).
 
+A matrix may be given as one block whose top-left element is the global
+``(row0, col0)``: the block then counts only its own columns, and the
+counts of a row's blocks along a mesh's model axis add up to the row's
+count (:func:`counts_many_blocks`, the counterpart of the JAX mesh path's
+psum along ``model``).
+
 On a CUDA tensor every function launches the hand-written kernel in
 ``csrc/rank_counts.cu`` (or raises); on a CPU tensor it runs the plain
 torch version beside it, which gives the identical integers.  There is no
@@ -17,7 +23,7 @@ fallback from one to the other.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,35 +58,42 @@ def _as_params(params) -> torch.Tensor:
     return p
 
 
-def counts_many_plain(rank_mat: torch.Tensor, params) -> torch.Tensor:
+def counts_many_plain(
+    rank_mat: torch.Tensor, params, row0: int = 0, col0: int = 0
+) -> torch.Tensor:
     """Plain torch version of :func:`counts_many`: int32[K, n_rows]."""
     p = _as_params(params).tolist()
     n_r, n_c = rank_mat.shape
     dev = rank_mat.device
-    rows = torch.arange(n_r, dtype=torch.int64, device=dev)[:, None]
+    rows = row0 + torch.arange(n_r, dtype=torch.int64, device=dev)[:, None]
     out = torch.empty((len(p), n_r), dtype=torch.int32, device=dev)
     for k, (start, cut, flag) in enumerate(p):
         hi = rows if flag == 1 else torch.tensor(cut, dtype=torch.int64, device=dev)
         # no column at or past the largest prefix end can count
-        width = min(n_c, max((n_r - 1 if flag == 1 else cut) - start, 0))
+        width = min(n_c, max((row0 + n_r - 1 if flag == 1 else cut) - start - col0, 0))
         window = rank_mat[:, :width]
-        cols = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+        cols = col0 + torch.arange(width, dtype=torch.int64, device=dev)[None, :]
         mask = (cols < hi - start) & (window >= start) & (window <= hi)
         out[k] = mask.sum(dim=1, dtype=torch.int32)
     return out
 
 
-def counts_many(rank_mat: torch.Tensor, params) -> torch.Tensor:
+def counts_many(
+    rank_mat: torch.Tensor, params, row0: int = 0, col0: int = 0
+) -> torch.Tensor:
     """Counts for K ``(start, cut, flag)`` rows in one launch:
     int32[K, n_rows] on the matrix's device (counterpart of
     ``pallas_kernels._counts_call_many`` and ``matrix.counts_many``).
 
     ``rank_mat`` may be a column-sliced view of the padded matrix (unit
     column stride, any row stride): a fixed window never reads past its
-    width.  Padding rows give counts for phantom rows, sliced off by the
-    caller."""
+    width.  It may also be a block whose top-left element is the global
+    ``(row0, col0)``.  Padding rows give counts for phantom rows, sliced
+    off by the caller."""
+    if row0 < 0 or col0 < 0:
+        raise ValueError(f"block offsets must be >= 0, got ({row0}, {col0})")
     if rank_mat.device.type == "cpu":
-        return counts_many_plain(rank_mat, params)
+        return counts_many_plain(rank_mat, params, row0, col0)
     if rank_mat.device.type != "cuda":
         raise ValueError(f"rank counts run on cuda or cpu, not {rank_mat.device}")
     if rank_mat.dtype != torch.int32 or rank_mat.dim() != 2:
@@ -94,23 +107,46 @@ def counts_many(rank_mat: torch.Tensor, params) -> torch.Tensor:
     if not 1 <= K <= 65535:
         raise ValueError(f"batch of {K} scans is outside 1..65535")
     n_r, n_c = rank_mat.shape
-    if n_r >= 2**31 or n_c >= 2**31:
-        raise ValueError(f"rank matrix too large: {tuple(rank_mat.shape)}")
+    if row0 + n_r >= 2**31 or col0 + n_c >= 2**31:
+        raise ValueError(f"rank matrix too large: {tuple(rank_mat.shape)} at ({row0}, {col0})")
     from hic_genome_assembler_tpu_torch.ops import _build
 
     lib = _build.library()
-    p_dev = p.to(rank_mat.device)
-    out = torch.empty((K, n_r), dtype=torch.int32, device=rank_mat.device)
-    stream = torch.cuda.current_stream(rank_mat.device).cuda_stream
-    err = lib.rank_counts(
-        rank_mat.data_ptr(), rank_mat.stride(0), n_r, n_c,
-        p_dev.data_ptr(), K, out.data_ptr(), stream,
-    )
+    dev = rank_mat.device
+    p_dev = p.to(dev)
+    out = torch.empty((K, n_r), dtype=torch.int32, device=dev)
+    # a launch goes to the current card: make it the tensor's (a block of
+    # a mesh may lie on any card)
+    with torch.cuda.device(dev):
+        err = lib.rank_counts(
+            rank_mat.data_ptr(), rank_mat.stride(0), n_r, n_c, row0, col0,
+            p_dev.data_ptr(), K, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"rank_counts kernel launch failed: cudaError {err}")
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def counts_many_blocks(
+    blocks: Sequence[Sequence[torch.Tensor]], params, out_device: torch.device
+) -> torch.Tensor:
+    """Counts over a matrix placed as ``(data, model)`` blocks of equal
+    shape (``parallel.mesh.place_blocks``): one :func:`counts_many` launch
+    per block with its offsets, the model-axis partials summed as int32 on
+    the device of the row's first block, and the row blocks gathered on
+    ``out_device``.  Returns int32[K, data * block_rows]."""
+    rb, cb = blocks[0][0].shape
+    rows: List[torch.Tensor] = []
+    for i, row_blocks in enumerate(blocks):
+        home = row_blocks[0].device
+        total: Optional[torch.Tensor] = None
+        for j, blk in enumerate(row_blocks):
+            part = counts_many(blk, params, row0=i * rb, col0=j * cb).to(home)
+            total = part if total is None else total + part
+        rows.append(total.to(out_device))
+    return torch.cat(rows, dim=1)
 
 
 def growing_window_counts(

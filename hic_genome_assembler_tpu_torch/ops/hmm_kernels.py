@@ -112,11 +112,12 @@ def forward_backward(
     gamma = torch.empty((T, 2), dtype=torch.float64, device=dev)
     xi_sum = torch.empty((2, 2), dtype=torch.float64, device=dev)
     logprob = torch.empty((), dtype=torch.float64, device=dev)
-    err = lib.hmm_forward_backward(
-        log_b.data_ptr(), log_start.data_ptr(), log_trans.data_ptr(), T, scratch.data_ptr(),
-        gamma.data_ptr(), xi_sum.data_ptr(), logprob.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # a launch goes to the current card
+        err = lib.hmm_forward_backward(
+            log_b.data_ptr(), log_start.data_ptr(), log_trans.data_ptr(), T, scratch.data_ptr(),
+            gamma.data_ptr(), xi_sum.data_ptr(), logprob.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"hmm_forward_backward kernel launch failed: cudaError {err}")
     LAUNCHES["hmm_forward_backward"] += 1
@@ -135,10 +136,11 @@ def viterbi(log_b: torch.Tensor, log_start: torch.Tensor, log_trans: torch.Tenso
     dev = log_b.device
     scratch = torch.empty((max(T - 1, 1), 2), dtype=torch.uint8, device=dev)
     path = torch.empty(T, dtype=torch.int32, device=dev)
-    err = lib.hmm_viterbi(
-        log_b.data_ptr(), log_start.data_ptr(), log_trans.data_ptr(), T, scratch.data_ptr(),
-        path.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # a launch goes to the current card
+        err = lib.hmm_viterbi(
+            log_b.data_ptr(), log_start.data_ptr(), log_trans.data_ptr(), T, scratch.data_ptr(),
+            path.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"hmm_viterbi kernel launch failed: cudaError {err}")
     LAUNCHES["hmm_viterbi"] += 1

@@ -5,7 +5,8 @@ part 1's ``RankCounts``, the fitted parameters of part 1's HMMs and, per
 chromosome in part 2, the pair-profile table ``h`` with its padded sizes
 and the float64 host bookkeeping of ``ChromosomeScorer``.  Every function
 takes numpy arrays (``np.asarray`` of the JAX arrays), so this module needs
-no jax.
+no jax.  Where the JAX object was placed on a mesh, passing the port's
+``parallel.mesh.Mesh`` places the port's object on it.
 """
 
 from __future__ import annotations
@@ -18,16 +19,20 @@ import torch
 from hic_genome_assembler_tpu_torch.cluster.breakpoints import RankCounts
 from hic_genome_assembler_tpu_torch.ops import cost
 from hic_genome_assembler_tpu_torch.ops.gaussian_hmm import GaussianHMM2
+from hic_genome_assembler_tpu_torch.parallel.mesh import Mesh
 
 
-def rank_counts_from_numpy(padded_rank: np.ndarray, n: int, device: torch.device) -> RankCounts:
+def rank_counts_from_numpy(
+    padded_rank: np.ndarray, n: int, device: torch.device, mesh: Optional[Mesh] = None
+) -> RankCounts:
     """``RankCounts`` over the first ``n`` rows and columns of a rank
-    matrix in any padded layout (entries past ``n`` are pad, -1 or 65535,
-    and never count), re-padded to the port's layout on ``device``."""
+    matrix in any padded layout (entries past ``n`` are pad, -1, 0 or
+    65535, and never count), re-padded to the port's layout on ``device``
+    or, with ``mesh``, placed as the port's mesh blocks."""
     padded_rank = np.asarray(padded_rank)
     if padded_rank.ndim != 2 or min(padded_rank.shape) < n:
         raise ValueError(f"rank matrix {padded_rank.shape} holds fewer than {n} rows/cols")
-    return RankCounts(np.array(padded_rank[:n, :n], dtype=np.int32), device)
+    return RankCounts(np.array(padded_rank[:n, :n], dtype=np.int32), device, mesh=mesh)
 
 
 def gaussian_hmm_from_numpy(
@@ -62,18 +67,22 @@ def chromosome_scorer_from_numpy(
     arrays: Dict[str, object],
     device: torch.device,
     stats: Optional[cost.PrecisionStats] = None,
+    mesh: Optional[Mesh] = None,
 ) -> cost.ChromosomeScorer:
     """The port's ``ChromosomeScorer`` holding exactly the given state:
     ``_h`` [4*Sp*Sp, L] (its dtype is the scoring dtype), ``_sizes_d``
     [Sp], ``sizes``, ``_sub`` (f64 [C, C]), ``intra_profile``,
     ``intra_total``, ``cross_total`` and the layout ints ``Sp``, ``cmax``,
-    ``L``, ``C_pad``.  No profile is rebuilt."""
+    ``L``, ``C_pad``.  No profile is rebuilt.  With ``mesh`` the scorer
+    splits its candidate batches over the mesh's data axis and keeps its
+    table on the mesh's first device."""
     missing = [k for k in _SCORER_ARRAYS + _SCORER_SHAPES if k not in arrays]
     if missing:
         raise ValueError(f"scorer state lacks {missing}")
     h = np.asarray(arrays["_h"])
     scorer = cost.ChromosomeScorer.__new__(cost.ChromosomeScorer)
-    scorer.device = torch.device(device)
+    scorer._mesh = mesh
+    scorer.device = mesh.first if mesh is not None else torch.device(device)
     scorer._dtype = h.dtype
     scorer.stats = cost.PrecisionStats() if stats is None else stats
     scorer.sizes = np.asarray(arrays["sizes"], dtype=np.int64)

@@ -9,7 +9,6 @@ import torch
 from hic_genome_assembler_tpu.cluster import breakpoints as jax_bp
 from hic_genome_assembler_tpu.ops import oracle
 from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp
-from hic_genome_assembler_tpu_torch.ops import count_kernels
 from hic_genome_assembler_tpu_torch.utils import state
 
 CPU = torch.device("cpu")
@@ -45,7 +44,8 @@ def test_pending_speculation_matches_host_counts(random_rank):
     n = random_rank.shape[0]
     dev = bp.RankCounts(random_rank, CPU)
     assert dev._host is None and dev.where == "cpu"
-    assert dev._dev.shape == (n + (-n % 512), n + (-n % 2048))
+    assert len(dev._blocks) == len(dev._blocks[0]) == 1
+    assert dev._blocks[0][0].shape == (n + (-n % 32),) * 2
 
     starts = [0, 7, 123, 2049, n - 9]
     dev.prefetch_growing(starts)
@@ -118,6 +118,8 @@ def test_state_round_trip_from_jax_rankcounts(random_rank):
         np.testing.assert_array_equal(ours.growing(s), want)
         np.testing.assert_array_equal(ours_padded.growing(s), want)
     np.testing.assert_array_equal(ours.fixed(10, 2500), theirs.fixed(10, 2500))
-    assert torch.equal(ours._dev, count_kernels.pad_rank(torch.from_numpy(random_rank)))
+    block = ours._blocks[0][0]
+    assert torch.equal(block[:n, :n], torch.from_numpy(random_rank))
+    assert (block[n:] == -1).all() and (block[:, n:] == -1).all()
     with pytest.raises(ValueError):
         state.rank_counts_from_numpy(padded[:100], n, CPU)

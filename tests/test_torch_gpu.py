@@ -25,6 +25,7 @@ from hic_genome_assembler_tpu_torch.models import part2_order  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import cost  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import count_kernels as ck  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, matrix  # noqa: E402
+from hic_genome_assembler_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hic_genome_assembler_tpu_torch.utils import e2e  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -61,9 +62,191 @@ def test_kernel_matches_plain_and_counts_launches(cuda):
         ck.counts_many(padded.t(), params)
 
 
+@pytest.mark.parametrize("layout", [(2, 2), (4, 1), (3, 2)])
+def test_kernel_with_offsets_matches_plain_on_blocks(cuda, layout):
+    """Every block of a 2-D layout: the kernel with the block's offsets
+    equals its plain version, and the blocks' sums equal one launch on the
+    whole matrix."""
+    n = 603
+    rank = torch.from_numpy(_rank(n, 1)).to(cuda)
+    d, m = layout
+    t = pm.pad_to_multiple(n, int(np.lcm(d, m)))
+    mesh = pm.make_mesh(layout, [cuda] * (d * m))
+    blocks = pm.place_blocks(mesh, [rank], t, t, fill=-1)
+    params = np.array([[0, 0, 1], [7, 0, 1], [590, 0, 1], [3, 77, 0], [400, 100, 0],
+                       [0, 602, 0], [250, 560, 0]], np.int32)
+    rb, cb = t // d, t // m
+    for i in range(d):
+        for j in range(m):
+            got = ck.counts_many(blocks[i][j], params, row0=i * rb, col0=j * cb)
+            want = ck.counts_many_plain(blocks[i][j], params, row0=i * rb, col0=j * cb)
+            assert torch.equal(got, want), (i, j)
+    before = ck.LAUNCHES
+    summed = ck.counts_many_blocks(blocks, params, cuda)[:, :n]
+    assert ck.LAUNCHES == before + d * m
+    assert torch.equal(summed, ck.counts_many(ck.pad_rank(rank), params)[:, :n])
+
+
+def test_virtual_mesh_rankcounts_on_cuda_equals_local(cuda):
+    rank = _rank(2500, 4)
+    mesh = pm.make_mesh((2, 2), [cuda] * 4)
+    local, sharded = bp.RankCounts(rank, cuda), bp.RankCounts(rank, cuda, mesh=mesh)
+    assert sharded.where == f"mesh 2x2 {cuda}"
+    starts = [0, 7, 123, 2049, 2491]
+    sharded.prefetch_growing(starts)
+    for s in starts:
+        np.testing.assert_array_equal(sharded.growing(s), local.growing(s))
+    pairs = [(0, 5), (17, 900), (900, 17), (5, 2499), (2498, 2499), (10, 2100)]
+    sharded.prefetch_fixed_pairs(pairs)
+    assert all(p in sharded._cache for p in pairs)
+    for s, c in pairs:
+        np.testing.assert_array_equal(sharded.fixed(s, c), local.fixed(s, c))
+
+
+def test_virtual_mesh_scorer_decisions_on_cuda(cuda):
+    genome = fixtures.make_genome(
+        chrom_scaffold_bins=((12, 9, 7, 6, 5, 4, 3, 2, 2, 1),), seed=5, noise=0.01
+    )
+    scaffolds = sorted(genome.scaffolds, key=lambda s: s.n_bins, reverse=True)
+    bins = [b for s in scaffolds for b in sorted(s.bin_ids)]
+    sub, sizes = genome.matrix[np.ix_(bins, bins)], [s.n_bins for s in scaffolds]
+    mesh = pm.make_mesh((2, 2), [cuda] * 4)
+    local = cost.ChromosomeScorer(sub, sizes, cuda)
+    sharded = cost.ChromosomeScorer(sub, sizes, cuda, mesh=mesh)
+    head, tail = list(range(6)), list(range(6, len(sizes)))
+    names = [s.name for s in scaffolds]
+    bf = part2_order.brute_force_best(sharded, head, names)
+    assert bf == part2_order.brute_force_best(local, head, names)
+    gr = part2_order.order_remainder_scaffolds(sharded, list(bf[0]), list(bf[1]), list(tail))
+    assert gr == part2_order.order_remainder_scaffolds(local, list(bf[0]), list(bf[1]), list(tail))
+
+
+def test_counts_on_blocks_over_two_cards():
+    """A mesh over two real cards: blocks on cuda:1 launch on cuda:1 while
+    cuda:0 is the current card, and ``RankCounts`` on a (2, 2) mesh of
+    cuda:0 and cuda:1 gives the single-device counts."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs and nvcc")
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    torch.cuda.set_device(cards[0])
+    n = 603
+    rank = torch.from_numpy(_rank(n, 5))
+    params = np.array([[0, 0, 1], [7, 0, 1], [3, 77, 0], [250, 560, 0]], np.int32)
+    mesh = pm.make_mesh((2, 2), [cards[0], cards[1], cards[1], cards[0]])
+    blocks = pm.place_blocks(mesh, [rank], 608, 608, fill=-1)
+    assert blocks[0][1].device == cards[1] and blocks[1][0].device == cards[1]
+    before = ck.LAUNCHES
+    summed = ck.counts_many_blocks(blocks, params, cards[0])[:, :n]
+    assert ck.LAUNCHES == before + 4
+    assert torch.equal(summed.cpu(), ck.counts_many_plain(rank, params))
+    local, sharded = bp.RankCounts(_rank(n, 5), cards[0]), bp.RankCounts(
+        _rank(n, 5), cards[0], mesh=mesh
+    )
+    assert sharded.where == "mesh 2x2 cuda:0,cuda:1"
+    for s in (0, 7, 590):
+        np.testing.assert_array_equal(sharded.growing(s), local.growing(s))
+    for s, c in ((0, 5), (17, 600), (250, 560)):
+        np.testing.assert_array_equal(sharded.fixed(s, c), local.fixed(s, c))
+
+
+def _cli_genome(tmp_path):
+    genome = fixtures.make_genome(
+        chrom_scaffold_bins=((14, 12, 10, 8, 6), (12, 11, 9, 8), (10, 9, 8, 6)),
+        seed=13, noise=0.005, cross_noise_frac=0.001,
+    )
+    return genome, fixtures.write_hicpro_files(genome, str(tmp_path / "hicpro"))
+
+
+_CLI_SETTINGS = {"minSize": "5", "louvainRounds": "5", "nScaffolds": "4", "scanScaffolds": "3"}
+
+
+def test_cli_mesh_auto_over_cards_byte_equal_to_off(tmp_path, monkeypatch):
+    """``-mesh auto`` over every visible card (2 or more) gives the files
+    of ``-mesh off``, and its rank counts ran on the cards' mesh."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs and nvcc")
+    monkeypatch.delenv("HIC_MESH", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    genome, paths = _cli_genome(tmp_path)
+    runs = {}
+    for spec in ("auto", "off"):
+        cfg = e2e.write_config(str(tmp_path / f"{spec}.cfg"), str(tmp_path / spec), paths,
+                               genome.resolution, _CLI_SETTINGS)
+        runs[spec] = cli.main(["-part1", "-part2", "-part3", "-part4", "-config", cfg,
+                               "-device", "cuda", "-mesh", spec])
+    k = torch.cuda.device_count()
+    cards = ",".join(f"cuda:{i}" for i in range(k))
+    assert runs["auto"].rank_counts_on == f"mesh {k}x1 {cards}"
+    files = sorted(os.listdir(tmp_path / "off" / "files"))
+    assert "assembled.fasta" in files
+    for name in files:
+        assert filecmp.cmp(tmp_path / "auto" / "files" / name,
+                           tmp_path / "off" / "files" / name, shallow=False), name
+
+
+_EP_CHILD = """
+import sys
+sys.modules["matplotlib"] = None
+sys.path.insert(0, sys.argv[1])
+from hic_genome_assembler_tpu_torch import cli
+cli.main(["-part2", "-config", sys.argv[2], "-device", "cuda", "-mesh", "auto"])
+"""
+
+
+def test_ep_processes_take_their_own_cards(tmp_path, monkeypatch):
+    """Two EP processes on one host of 2 or more cards (``LOCAL_WORLD_SIZE``
+    2, as ``torchrun --nproc-per-node 2`` sets it): each runs on its own
+    half of the cards, and the merged files equal the single process's."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs and nvcc")
+    import shutil
+    import socket
+    import subprocess
+
+    monkeypatch.delenv("HIC_MESH", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    genome, paths = _cli_genome(tmp_path)
+    single_cfg = e2e.write_config(str(tmp_path / "single.cfg"), str(tmp_path / "single"), paths,
+                                  genome.resolution, _CLI_SETTINGS)
+    cli.main(["-part1", "-part2", "-config", single_cfg, "-device", "cuda", "-mesh", "off"])
+    ep_cfg = e2e.write_config(str(tmp_path / "ep.cfg"), str(tmp_path / "ep"), paths,
+                              genome.resolution, _CLI_SETTINGS)
+    shutil.copy(tmp_path / "single" / "files" / "chromosomeGroupings.txt",
+                tmp_path / "ep" / "files" / "chromosomeGroupings.txt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _EP_CHILD, repo, ep_cfg],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+        for r in (0, 1)
+    ]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    per = torch.cuda.device_count() // 2
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-3000:]
+        if per > 1:  # -mesh auto builds a mesh over this process's cards only
+            assert f"- Parallel runtime: {per} devices, mesh {{'data': {per}, 'model': 1}}, " \
+                   f"process {r}/2" in out, out[-3000:]
+        else:
+            assert "- Parallel runtime:" not in out
+    for name in ("chromosomeOrdering.txt", "plotOrder.txt"):
+        assert filecmp.cmp(tmp_path / "ep" / "files" / name,
+                           tmp_path / "single" / "files" / name, shallow=False), name
+
+
 def test_rankcounts_on_cuda_equals_cpu(cuda, monkeypatch):
-    """The CUDA path, including its column-bucketed batched fixed windows
-    (taken on CUDA only), gives the CPU path's counts and cut lists."""
+    """The CUDA path, including its batched fixed windows (taken on CUDA
+    only), gives the CPU path's counts and cut lists."""
     monkeypatch.setattr(bp, "_HOST_N", 0)
     rank = _rank(2500, 4)
     gpu, cpu = bp.RankCounts(rank, cuda), bp.RankCounts(rank, CPU)
