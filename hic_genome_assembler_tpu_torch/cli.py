@@ -4,8 +4,8 @@
 The same flags and run semantics as ``hic_genome_assembler_tpu.cli``: any
 combination of parts runs in order, total wall-clock printed at the end.
 Parts 1 and 2 run on the chosen torch device, or on the mesh that
-``parallel.runtime.bring_up`` builds; parts 3 and 4 are host-only and are
-the JAX package's own jax-free drivers.  Under ``torchrun`` (or with
+``parallel.runtime.bring_up`` builds; parts 3 and 4 are host-only, the
+port's copies of the JAX package's part 3 and part 4 modules.  Under ``torchrun`` (or with
 ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set) each
 process searches its shard of part 2's chromosomes and process 0 merges
 them.
@@ -19,7 +19,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
-from hic_genome_assembler_tpu.config import (
+from hic_genome_assembler_tpu_torch.config import (
     ensure_all_variables_are_set,
     read_config_file_to_variables,
 )
@@ -81,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> RunReport:
     args = build_parser().parse_args(argv)
     start = time.time()
-    from hic_genome_assembler_tpu.utils import hostmem
+    from hic_genome_assembler_tpu_torch.utils import hostmem
     from hic_genome_assembler_tpu_torch.parallel import distributed, runtime
 
     hostmem.tune()  # warm-page reuse for the multi-GB host matrices
@@ -145,7 +145,7 @@ def run_parts(var: Dict[str, object], parts: Sequence[str], rt) -> RunReport:
         print("- Parts 3 and 4 run on process 0 only")
         return report
     if "part3" in parts:
-        from hic_genome_assembler_tpu.models import part3_orient as part3
+        from hic_genome_assembler_tpu_torch.models import part3_orient as part3
 
         t0 = time.time()
         part3.run_pipeline(
@@ -155,7 +155,7 @@ def run_parts(var: Dict[str, object], parts: Sequence[str], rt) -> RunReport:
         )
         report.part_seconds["part3"] = time.time() - t0
     if "part4" in parts:
-        from hic_genome_assembler_tpu.models import part4_fasta as part4
+        from hic_genome_assembler_tpu_torch.models import part4_fasta as part4
 
         t0 = time.time()
         part4.run_pipeline(

@@ -24,8 +24,7 @@ import numpy as np
 import scipy.stats
 import torch
 
-from hic_genome_assembler_tpu.ops import hypergeom
-from hic_genome_assembler_tpu_torch.ops import count_kernels
+from hic_genome_assembler_tpu_torch.ops import count_kernels, hypergeom
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 
 

@@ -4,11 +4,12 @@ Counterpart of ``hic_genome_assembler_tpu/models/part1_cluster.py``, every
 branch: ``hyperGeom`` with ``matrixMode`` ``exact`` or ``device``, and
 ``hmm`` with ``hmmMode`` ``fast`` or ``exact``.  Ingest, distance
 transform, UPGMA, the f64 similarity, log and (exact mode) rank matrix and
-the Louvain tail are the JAX package's host modules, reused.  On the given
-torch device run: the rank-count scans of the breakpoint search (the port's
-``RankCounts``), the rank argsort in device mode (``ops/matrix.py``) and
-the HMM fits of the HMM branch (``cluster/hmm_cuts.py``), on one device or,
-for the rank matrix, on the blocks of a mesh.
+the Louvain tail are the port's copies of the JAX package's host modules.
+On the given torch device run: the rank-count scans of the breakpoint
+search (the port's ``RankCounts``), the rank argsort in device mode
+(``ops/matrix.py``) and the HMM fits of the HMM branch
+(``cluster/hmm_cuts.py``), on one device or, for the rank matrix, on the
+blocks of a mesh.
 """
 
 from __future__ import annotations
@@ -20,14 +21,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hic_genome_assembler_tpu.cluster import louvain, upgma
-from hic_genome_assembler_tpu.io import filebus, hicpro
-from hic_genome_assembler_tpu.ops import oracle
-from hic_genome_assembler_tpu.utils import profiling
-from hic_genome_assembler_tpu_torch.cluster import breakpoints, hmm_cuts
-from hic_genome_assembler_tpu_torch.ops import matrix
+from hic_genome_assembler_tpu_torch.cluster import breakpoints, hmm_cuts, louvain, upgma
+from hic_genome_assembler_tpu_torch.io import filebus, hicpro
+from hic_genome_assembler_tpu_torch.ops import matrix, oracle
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
-from hic_genome_assembler_tpu_torch.utils import plots
+from hic_genome_assembler_tpu_torch.utils import plots, profiling
 
 
 def permute_checked(adj: np.ndarray, order) -> np.ndarray:

@@ -31,13 +31,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hic_genome_assembler_tpu.io import filebus, hicpro
-from hic_genome_assembler_tpu.ops import perms
-from hic_genome_assembler_tpu.utils import profiling
+from hic_genome_assembler_tpu_torch.io import filebus, hicpro
 from hic_genome_assembler_tpu_torch.ops import cost as cost_ops
+from hic_genome_assembler_tpu_torch.ops import perms
 from hic_genome_assembler_tpu_torch.parallel import distributed
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
-from hic_genome_assembler_tpu_torch.utils import plots
+from hic_genome_assembler_tpu_torch.utils import plots, profiling
 
 
 @dataclass

@@ -5,8 +5,9 @@ entry points.  At first use each source is compiled with ``nvcc`` for
 Hopper (``sm_90a``), all of them at once in parallel processes, and the
 objects are linked into ``build/kernels/libkernels.so`` at the repository
 root and loaded with ``ctypes``; the build is redone whenever the hash of
-the sources or of the flags changes.  Nothing here runs at import time:
-the CPU test machines have no ``nvcc``.
+the sources or of the flags changes.  ``build/kernels/nvcc.log`` keeps
+ptxas' report of each kernel's registers, shared memory and spills.
+Nothing here runs at import time: the CPU test machines have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 _LIB_NAME = "libkernels.so"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+LOG = BUILD_DIR / "nvcc.log"
 
 
 def _nvcc() -> str:
@@ -79,6 +81,8 @@ def build() -> float:
     for cmd, proc, (out, err) in zip(compiles, procs, results):
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(" ".join(cmd), out, err))
+    LOG.write_text("".join(f"== {src.name}\n{out}{err}"
+                           for src, (out, err) in zip(sources, results)))
     link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
     proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
-from hic_genome_assembler_tpu.ops import oracle
+from hic_genome_assembler_tpu_torch.ops import oracle
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 
 

@@ -13,8 +13,8 @@ log-densities and the M step are matrix products (``torch.matmul``); the
 forward-backward and Viterbi recursions go through ``ops.hmm_kernels`` (the
 CUDA kernels on a GPU, their plain torch loops on the CPU).  The EM loop
 runs on the host and reads the log-likelihood back once per iteration.
-Fits and EM iterations are counted in ``profiling`` (part 1's summary
-prints them).
+Fits and EM iterations are counted in ``profiling``, and the k-means, EM
+and decode seconds timed there (part 1's summary prints them).
 
 ``mode`` keeps the JAX package's two semantic differences and nothing
 else: k-means takes 2 inits in ``"fast"`` mode and 10 in ``"exact"`` mode,
@@ -31,8 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from hic_genome_assembler_tpu.utils import profiling
 from hic_genome_assembler_tpu_torch.ops import hmm_kernels, kmeans
+from hic_genome_assembler_tpu_torch.utils import profiling
 
 _MIN_COVAR = kmeans.MIN_COVAR
 _LOG2PI = float(np.log(2.0 * np.pi))
@@ -114,9 +114,11 @@ class GaussianHMM2:
         self.transmat_ = trans.cpu().numpy()
 
     def _decode(self, X: torch.Tensor, X2: torch.Tensor) -> np.ndarray:
-        log_b = _log_gaussian_diag(X, X2, self._tensor(self.means_), self._tensor(self.covars_))
-        path = hmm_kernels.viterbi(log_b, self._log_start(), torch.log(self._tensor(self.transmat_)))
-        return path.cpu().numpy().astype(np.int64)
+        with profiling.timer("part1/hmm_decode"):
+            log_b = _log_gaussian_diag(X, X2, self._tensor(self.means_), self._tensor(self.covars_))
+            log_trans = torch.log(self._tensor(self.transmat_))
+            path = hmm_kernels.viterbi(log_b, self._log_start(), log_trans)
+            return path.cpu().numpy().astype(np.int64)
 
     def _upload(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         Xd = self._tensor(X)
@@ -124,9 +126,12 @@ class GaussianHMM2:
 
     def _fit(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """EM on ``X``; returns its upload (``X``, ``X ** 2`` on device)."""
-        means0, covars0 = self._init_params(X)
+        with profiling.timer("part1/hmm_kmeans"):
+            means0, covars0 = self._init_params(X)
         data = self._upload(X)
-        self._em(*data, means0, covars0)
+        # ends in a readback of the fitted parameters: device time included
+        with profiling.timer("part1/hmm_em"):
+            self._em(*data, means0, covars0)
         return data
 
     def fit(self, X) -> "GaussianHMM2":

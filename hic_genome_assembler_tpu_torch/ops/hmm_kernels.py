@@ -11,17 +11,58 @@ On a CUDA tensor ``forward_backward`` and ``viterbi`` launch the
 hand-written kernels in ``csrc/hmm_scan.cu`` (or raise); on a CPU tensor
 they run the plain torch loops beside them, which are also the oracle of
 the tests.  There is no fallback from one to the other.
+
+The kernels are chunked parallel scans: they associate the f64 sums
+differently from the sequential loops, so they agree with them within
+:func:`forward_backward_errors`' bounds, not bit for bit.  Viterbi paths
+are identical.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 # Kernel launches made by the wrappers below (read by chip_smoke.py to show
 # that the main path went through the kernels).
 LAUNCHES = {"hmm_forward_backward": 0, "hmm_viterbi": 0}
+
+# How far the kernels may differ from the plain loops, whose sums they
+# associate differently.  A chain of T rounded f64 steps is off by at most
+# about T * 2**-52 of the magnitude it carries, and the log-likelihood
+# carries |logprob|: it is held to (T + 8) * 2**-52 relative.  gamma is
+# normalised per frame, so only the two states' difference at one frame
+# reaches it: 1e-9 absolute.  Every log-xi term subtracts the log-likelihood,
+# so the xi sums are held relatively to 1e-9 plus twice the log-likelihood's
+# absolute bound.
+GAMMA_ATOL = 1e-9
+XI_RTOL = 1e-9
+
+
+def logprob_rtol(T: int) -> float:
+    """The log-likelihood's relative bound at ``T`` frames."""
+    return (T + 8) * 2.0**-52
+
+
+def forward_backward_errors(got, want) -> Tuple[Dict[str, float], bool]:
+    """The differences of two ``(logprob, gamma, xi_sum)`` results (the
+    log-likelihood's and the xi sums' relative, gamma's absolute, and the
+    largest absolute one of all three) and whether they lie within the
+    bounds above; a NaN never does."""
+    lp, gamma, xi = (x.double().cpu() for x in got)
+    wlp, wgamma, wxi = (x.double().cpu() for x in want)
+    rtol = logprob_rtol(wgamma.shape[0])
+    errors = {
+        "logprob_rel": float((lp - wlp).abs() / wlp.abs().clamp_min(1e-300)),
+        "gamma_abs": float((gamma - wgamma).abs().max()),
+        "xi_rel": float(((xi - wxi).abs() / wxi.abs().clamp_min(1e-300)).max()),
+        "max_abs": max(float((g - w).abs().max())
+                       for g, w in zip((lp, gamma, xi), (wlp, wgamma, wxi))),
+    }
+    ok = (errors["logprob_rel"] <= rtol and errors["gamma_abs"] <= GAMMA_ATOL
+          and errors["xi_rel"] <= XI_RTOL + 2 * rtol * float(wlp.abs()))
+    return errors, ok
 
 
 def _logsumexp(a: torch.Tensor, dim: int) -> torch.Tensor:

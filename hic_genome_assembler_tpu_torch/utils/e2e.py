@@ -1,7 +1,7 @@
 """Whole-pipeline runs on planted-truth fixtures.
 
 The genome generator, HiC-Pro writer, file-bus readers and FASTA reader
-are the JAX package's host modules; this module adds the 16K north-star
+are the port's copies of the JAX package's host modules; this module adds the 16K north-star
 layout, the HMM scale genome with its settings and golden record, the
 config file for a CLI run, and the planted-truth checks of the JAX
 package's ``benchmarks/run_benchmarks.py::config_e2e_16k``.
@@ -14,8 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from hic_genome_assembler_tpu.io import fasta, filebus
-from hic_genome_assembler_tpu.utils import fixtures
+from hic_genome_assembler_tpu_torch.io import fasta, filebus
+from hic_genome_assembler_tpu_torch.utils import fixtures
 
 # Part 1/2 settings of the 16K north-star run: min_size=15 recovers the
 # planted chromosomes of this fixture (the reference's docs recommend

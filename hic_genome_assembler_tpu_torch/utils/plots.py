@@ -1,7 +1,7 @@
 """The one door for contact-map plots.
 
-Plots are host-side output, off the device path.  The JAX package's
-``viz.plot`` draws them with matplotlib; where matplotlib is not installed
+Plots are host-side output, off the device path.  ``viz.plot`` (the
+port's copy of the JAX package's) draws them with matplotlib; where matplotlib is not installed
 the run prints one notice and goes on without plots.
 """
 
@@ -29,9 +29,9 @@ def available() -> bool:
 
 
 def plot_contact_map(*args, **kwargs) -> None:
-    """``hic_genome_assembler_tpu.viz.plot.plot_contact_map``, or nothing
+    """``viz.plot.plot_contact_map``, or nothing
     when matplotlib is not installed."""
     if available():
-        from hic_genome_assembler_tpu.viz import plot as plot_mod
+        from hic_genome_assembler_tpu_torch.viz import plot as plot_mod
 
         plot_mod.plot_contact_map(*args, **kwargs)

@@ -131,6 +131,24 @@ def test_viterbi_plain_equals_jax(name):
         assert (got == 0).all()  # every tie goes to the lower state
 
 
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_kernel_bounds_hold_the_jax_scan_and_refuse_what_exceeds_them(name):
+    """``forward_backward_errors``, which holds the card's chunked scans to
+    the plain loops, accepts the JAX scan's result; it refuses a
+    log-likelihood moved by twice its bound, a gamma moved by 2e-9, and a NaN."""
+    log_b, log_start, log_trans = _scan_case(name)
+    want = hmm_kernels.forward_backward(*map(torch.from_numpy, (log_b, log_start, log_trans)))
+    jax_got = tuple(torch.from_numpy(np.array(w)) for w in jax_hmm._forward_backward(
+        jnp.asarray(log_b), jnp.asarray(log_start), jnp.asarray(log_trans)))
+    errors, ok = hmm_kernels.forward_backward_errors(jax_got, want)
+    assert ok, errors
+    lp, gamma, xi = want
+    rtol = hmm_kernels.logprob_rtol(log_b.shape[0])
+    for bad in ((lp * (1 + 2 * rtol), gamma, xi), (lp, gamma + 2e-9, xi),
+                (lp, gamma, xi * float("nan"))):
+        assert not hmm_kernels.forward_backward_errors(bad, want)[1]
+
+
 def test_scans_of_one_frame():
     """T = 1, where the JAX scans reduce over nothing: no transition, so
     xi_sum is 0; gamma is the normalised first frame."""

@@ -1,7 +1,10 @@
-"""The port runs where jax is not installed (as on the GPU machines).
+"""The port runs where neither jax nor the JAX package is installed (as on
+the GPU machines).
 
-A subprocess whose import hook makes ``import jax`` (and matplotlib and
-scikit-learn, which the GPU machines lack too) fail runs the port's CLI on
+A subprocess whose import hook makes ``import jax`` and ``import
+hic_genome_assembler_tpu`` (and matplotlib and scikit-learn, which the GPU
+machines lack too) fail makes its fixture through the port's own copy of
+the fixtures module and runs the port's CLI on
 a small fixture: on the default branch, with ``hmm = True``, and on a
 ``-mesh 2x2`` virtual CPU mesh; it must succeed, skip its plots with one
 notice, and leave none of those modules loaded.  Then two such processes
@@ -20,7 +23,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCK = r"""
 import importlib.abc, json, sys
 
-BLOCKED = ("jax", "jaxlib", "matplotlib", "sklearn")
+BLOCKED = ("jax", "jaxlib", "matplotlib", "sklearn", "hic_genome_assembler_tpu")
 
 class _NotInstalled(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -37,10 +40,9 @@ workdir = sys.argv[2]
 settings = json.loads(sys.argv[3])
 extra = json.loads(sys.argv[4])
 
-from hic_genome_assembler_tpu.utils import fixtures
 from hic_genome_assembler_tpu_torch import cli
 from hic_genome_assembler_tpu_torch.cluster import breakpoints
-from hic_genome_assembler_tpu_torch.utils import e2e
+from hic_genome_assembler_tpu_torch.utils import e2e, fixtures
 
 breakpoints._HOST_N = 0  # run the device count path (plain torch on the CPU)
 genome = fixtures.make_genome(seed=3)

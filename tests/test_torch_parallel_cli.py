@@ -32,6 +32,7 @@ from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp
 from hic_genome_assembler_tpu_torch.models import part2_order
 from hic_genome_assembler_tpu_torch.parallel import distributed
 from hic_genome_assembler_tpu_torch.utils import e2e
+from hic_genome_assembler_tpu_torch.viz import plot as torch_plot_mod
 
 import torch  # noqa: E402  (after the packages, as the other port tests)
 
@@ -54,6 +55,7 @@ SETTINGS = {"minSize": "5", "louvainRounds": "5", "nScaffolds": "4", "scanScaffo
 @pytest.fixture(autouse=True)
 def _quiet(monkeypatch):
     monkeypatch.setattr(plot_mod, "plot_contact_map", lambda *a, **k: None)
+    monkeypatch.setattr(torch_plot_mod, "plot_contact_map", lambda *a, **k: None)
     monkeypatch.setenv("HIC_JAX_CACHE", "off")
     monkeypatch.delenv("HIC_MESH", raising=False)
     monkeypatch.delenv("WORLD_SIZE", raising=False)

@@ -13,11 +13,12 @@ import pytest
 
 from hic_genome_assembler_tpu import cli as jax_cli
 from hic_genome_assembler_tpu.cluster import breakpoints as jax_bp
-from hic_genome_assembler_tpu.utils import fixtures, profiling
+from hic_genome_assembler_tpu.utils import fixtures
 from hic_genome_assembler_tpu.viz import plot as plot_mod
 from hic_genome_assembler_tpu_torch import cli
 from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp
-from hic_genome_assembler_tpu_torch.utils import e2e
+from hic_genome_assembler_tpu_torch.utils import e2e, profiling
+from hic_genome_assembler_tpu_torch.viz import plot as torch_plot_mod
 
 FILES = (
     "dendrogramOrder.txt",
@@ -46,8 +47,10 @@ def fixture_genome(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def _quiet(monkeypatch):
-    # no PNGs are compared; both packages plot through this function
+    # no PNGs are compared; each package plots through its own copy of this
+    # function
     monkeypatch.setattr(plot_mod, "plot_contact_map", lambda *a, **k: None)
+    monkeypatch.setattr(torch_plot_mod, "plot_contact_map", lambda *a, **k: None)
     monkeypatch.setenv("HIC_JAX_CACHE", "off")
 
 
