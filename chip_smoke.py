@@ -16,8 +16,17 @@ passes or fails the run:
    test shapes, then both timed with CUDA events;
 4. main path: the 16K-bin north-star genome through
    ``hic_genome_assembler_tpu_torch.cli.main`` (-part1 -part2 -part3
-   -part4, device cuda, mesh off), with the planted-truth checks; the pipeline's own
-   output goes to build/chip_smoke_pipeline.log;
+   -part4, device cuda, mesh off), with the planted-truth checks; part 2
+   must launch the scoring kernels exactly as often as the fixture needs
+   (``MAIN_SCORE_LAUNCHES``: 29 profiles, 29 combo top-k, 1,206 pair scores,
+   no block scores), call no plain scoring version on the card and report
+   0 precision violations.
+   Then -part2 with -device cpu (the plain versions) on the same part-1
+   files: its chromosomeOrdering.txt and plotOrder.txt must be byte-equal
+   to the card's.  Last, -part2 on the card again under torch.profiler:
+   device busy and idle shares, pageable host-to-device copies, the
+   kernels with most device time.  Output in build/chip_smoke_pipeline.log,
+   build/chip_smoke_part2_cpu.log and build/chip_smoke_part2_profile.log;
 5. HMM kernels: the chunked-scan forward-backward and Viterbi kernels
    timed with CUDA events at T = 3,715 and 17,162 (before any plain loop
    runs), then held against their plain torch loops on the card at T = 1,
@@ -30,6 +39,18 @@ passes or fails the run:
    twice the log-likelihood's bound), no NaN, identical paths; their times
    a call (CUDA events) and on the device (torch.profiler) are printed
    beside their bounds and the plain loops' times;
+5b. scoring kernels: pair profiles, combo top-k (and its group epilogue),
+   block scores and pair scores against their plain torch versions on the
+   card at the main path's shapes and bench.py's combo shape (5.16M
+   candidates): integer-valued inputs exactly (values, argmaxes, second
+   maxima, ties included), seeded floats within ``sum_bound``, two launches
+   bit-identical; each timed with CUDA events beside its plain version and
+   its bound (bytes: each input read once, of the table only the distinct
+   values the launch gathers, of the matrix only the off-diagonal blocks
+   the profile kernel reads), and the table product h @ Wm at its most
+   frequent shape.  Then
+   part 2's brute force with a forced escalation, on the card and on the
+   CPU: the same decision, and the block kernel launched;
 6. HMM path: the CLI (-part1 -part2 -part3 -part4, device cuda, hmm = True)
    on the 3,715-bin HMM genome; its cut list and part-1 files must equal
    the JAX package's golden record (utils/hmm_golden_3715.json); output in
@@ -46,19 +67,26 @@ passes or fails the run:
    against one launch;
 9. mesh path: part 1 then part 2 (``cli.run_parts``) on phase 4's genome
    with a virtual (2, 2) mesh whose positions are all cuda:0; their files
-   must be byte-equal to phase 4's.  With two cards or more, the CLI with
-   -mesh auto over the real cards runs too.  Output in
-   build/chip_smoke_mesh.log;
+   must be byte-equal to phase 4's, and the scoring kernels (with the group
+   epilogue on the blocks' gathered scores) launched as
+   ``MESH_SCORE_LAUNCHES`` says.  With
+   two cards or more, the CLI with -mesh auto over the real cards runs too.
+   Output in build/chip_smoke_mesh.log;
 10. EP: two CLI processes (-part2, RANK 0 and 1, WORLD_SIZE 2, a free
    localhost port) share the card on phase 4's part-1 files; the merged
-   chromosomeOrdering.txt and plotOrder.txt must be byte-equal to phase 4's.
-   Output in build/chip_smoke_ep{0,1}.log.
+   chromosomeOrdering.txt and plotOrder.txt must be byte-equal to phase 4's,
+   and each process prints its scoring kernels' launches, which must cover
+   the three of its shard's path and sum to phase 4's.  Output in build/chip_smoke_ep{0,1}.log.
 
-Each of phases 4, 6, 7 and 9 sets the launch counts of its kernels to 0 just
-before it drives its path and fails if a kernel of that path was not
-launched (phase 10 runs part 2 only, which launches no kernel of the port).  The second-to-last stdout line is the kernels' JSON record, the
-last line {"ok": true, "device": {...}}.  Without a CUDA device, or without
-the package beside it, the script exits non-zero and prints no result.
+Each of phases 4, 5b (the forced escalation), 6, 7 and 9 sets the launch
+counts of its kernels to 0 just before it drives its path and fails if a
+kernel of that path was not launched; phase 10's processes start from 0.
+Phase 1 prints the card's nvidia-smi name and power limit, and phase 5b
+repeats them beside each time it prints.  The second-to-last stdout line is the kernels' JSON record (each
+kernel's launches from its path: block_score's from the forced escalation,
+the others' from phase 4), the last line {"ok": true, "device": {...}}.
+Without a CUDA device, or without the package beside it, the script exits
+non-zero and prints no result.
 """
 
 import contextlib
@@ -103,6 +131,38 @@ N_RANK_ROWS = 64                   # device-mode rank rows held against numpy
 MESH_LOG = REPO / "build" / "chip_smoke_mesh.log"
 EP_LOG = str(REPO / "build" / "chip_smoke_ep{}.log")
 MESH_LAYOUTS = ((2, 2), (4, 1))    # phase 8's block layouts
+SCORE_SOURCE = "hic_genome_assembler_tpu_torch/csrc/score_kernels.cu"
+SCORE_REPLACES = {
+    "pair_profiles": "hic_genome_assembler_tpu/ops/cost.py:82",
+    "combo_score_topk": "hic_genome_assembler_tpu/ops/cost.py:382",
+    "block_score": "hic_genome_assembler_tpu/ops/cost.py:203",
+    "pair_score": "hic_genome_assembler_tpu/ops/cost.py:402",
+}
+# the main path's launches are checked for these; block_score runs on escalation only
+# the scoring kernels' launches on the 16K run (29 chromosome groups; they
+# depend on the fixture, not the device): block scores only on escalation
+MAIN_SCORE_LAUNCHES = {"pair_profiles": 29, "combo_score_topk": 29, "block_score": 0,
+                       "pair_score": 1206, "group_argmax": 0}
+# on a (2, 2) mesh each combo and pair launch runs once a data-axis block, and
+# the group epilogue once on each combo batch's gathered scores
+MESH_SCORE_LAUNCHES = {"pair_profiles": 29, "combo_score_topk": 58, "block_score": 0,
+                       "pair_score": 2412, "group_argmax": 29}
+FP32_OPS_PER_S = 67e12             # H100 SXM data sheet, f32 outside the tensor cores
+SCORE_SP, SCORE_CP1 = 56, 769      # the 16K run's widest tables: 12,544 rows x 769 columns
+SCORE_W = 56                       # its candidate width (55 scaffolds rounded up to 8)
+SCORE_LOG = REPO / "build" / "chip_smoke_part2_cpu.log"
+PROFILE_LOG = REPO / "build" / "chip_smoke_part2_profile.log"
+# the scoring phase's shapes: pair-score batches (label, B, real ids a row,
+# pads scattered inside rows), combo batches (S, Sp, C + 1 of the table),
+# block batches (S, orders), profile builds (largest scaffold, cmax);
+# the first of each is the one timed on the main path
+SCORE_SHAPES = {
+    "pair": (("window B=30720", 30720, 55, False), ("greedy B=112", 112, 30, False),
+             ("pads inside B=509", 509, 40, True)),
+    "combo": ((6, SCORE_SP, SCORE_CP1), (8, 9, 2049)),
+    "block": ((8, 2048), (6, 360)),
+    "profiles": ((380, 384), (120, 128)),
+}
 PART1_FILES = ("dendrogramOrder.txt", "binGroupings.txt", "clusterAssessment.txt",
                "chromosomeGroupings.txt")
 PART2_FILES = ("chromosomeOrdering.txt", "plotOrder.txt")
@@ -113,7 +173,13 @@ sys.modules["matplotlib"] = None
 sys.path.insert(0, sys.argv[1])
 from hic_genome_assembler_tpu_torch import cli
 cli.main(["-part2", "-config", sys.argv[2], "-device", "cuda"])
+import json
+from hic_genome_assembler_tpu_torch.ops import score_kernels
+print("[launches] " + json.dumps(score_kernels.LAUNCHES))
 """
+
+
+CARD = "the card"                  # phase 1's nvidia-smi line: name, power limit
 
 
 class SmokeFailure(RuntimeError):
@@ -143,7 +209,8 @@ def cuda_ms(torch, fn, iters):
 
 def device_ms(torch, fn, kernel, iters=20):
     """Mean device milliseconds that a call of ``fn`` spends in the CUDA
-    kernel whose name holds ``kernel``, from torch.profiler's trace of
+    kernels whose names hold ``kernel`` (a string, or a tuple of them: a
+    call of several kernels), from torch.profiler's trace of
     ``iters`` warm calls (free of the host's time per call, which CUDA
     events over back-to-back calls include once it exceeds the kernel's);
     None where the trace shows no such kernel."""
@@ -155,7 +222,9 @@ def device_ms(torch, fn, kernel, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if any(name in e.key for name in names))
     return total_us / 1e3 / iters if total_us else None
 
 
@@ -182,11 +251,58 @@ def echo_timers(log_path):
 
 def reset_launches():
     """Set every kernel's launch count to 0 (before a path is driven)."""
-    from hic_genome_assembler_tpu_torch.ops import count_kernels, hmm_kernels
+    from hic_genome_assembler_tpu_torch.ops import count_kernels, hmm_kernels, score_kernels
 
     count_kernels.LAUNCHES = 0
-    for name in hmm_kernels.LAUNCHES:
-        hmm_kernels.LAUNCHES[name] = 0
+    for counts in (hmm_kernels.LAUNCHES, score_kernels.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def score_launches():
+    from hic_genome_assembler_tpu_torch.ops import score_kernels
+
+    return dict(score_kernels.LAUNCHES)
+
+
+PLAIN_SCORERS = ("pair_profiles_plain", "combo_scores_plain", "combo_score_topk_plain",
+                 "block_scores_plain", "pair_scores_plain", "_group_argmax")
+
+
+@contextlib.contextmanager
+def plain_scorers_on_cuda():
+    """Counts the calls of the scoring kernels' plain versions on CUDA
+    tensors while the block runs (yields the dict of counts)."""
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    calls = {name: 0 for name in PLAIN_SCORERS}
+    originals = {name: getattr(sk, name) for name in PLAIN_SCORERS}
+
+    def counting(name):
+        def wrapper(*args, **kwargs):
+            if args[0].device.type == "cuda":
+                calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    for name in PLAIN_SCORERS:
+        setattr(sk, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(sk, name, fn)
+
+
+def precision_line(log_path):
+    """The numbers of part 2's ``- precision: ...`` summary in a run's log."""
+    with open(log_path) as log:
+        found = re.findall(r"- precision: (\d+) rescored, max rel err (\S+), (\d+) escalations, "
+                           r"(\d+) violations", log.read())
+    check(found, f"no part-2 precision summary in {log_path}")
+    n, max_rel, esc, viol = found[-1]
+    return {"rescored": int(n), "max_rel": float(max_rel), "escalations": int(esc),
+            "violations": int(viol)}
 
 
 def phase_device(torch):
@@ -195,6 +311,8 @@ def phase_device(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
+    global CARD
+    CARD = smi[0]
     print(smi[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device 0: {torch.cuda.get_device_name(0)}")
@@ -305,8 +423,8 @@ def kernel_batches(np, n):
 
 def phase_main_path(torch, workdir):
     """The full CLI pipeline on the planted 16K genome in ``workdir``;
-    returns the kernel launches it made, its cut list, and the genome's
-    HiC-Pro paths and resolution."""
+    returns the rank-count kernel's launches, the scoring kernels' launches,
+    its cut list, and the genome's HiC-Pro paths and resolution."""
     from hic_genome_assembler_tpu_torch import cli
     from hic_genome_assembler_tpu_torch.ops import count_kernels
     from hic_genome_assembler_tpu_torch.utils import e2e
@@ -324,17 +442,26 @@ def phase_main_path(torch, workdir):
     # their meshes and processes with this run
     argv = ["-part1", "-part2", "-part3", "-part4", "-config", config, "-device", "cuda",
             "-mesh", "off"]
-    reset_launches()
-    t0 = time.time()
-    with open(LOG, "w") as log, contextlib.redirect_stdout(log):
-        report = cli.main(argv)
-    total_s = time.time() - t0
-    launches = count_kernels.LAUNCHES
+    with plain_scorers_on_cuda() as plain_calls:
+        reset_launches()
+        t0 = time.time()
+        with open(LOG, "w") as log, contextlib.redirect_stdout(log):
+            report = cli.main(argv)
+        total_s = time.time() - t0
+        launches, scoring = count_kernels.LAUNCHES, score_launches()
     truth = e2e.truth_checks(genome, os.path.join(workdir, "files"))
+    precision = precision_line(LOG)
     echo_timers(LOG)
     parts = ", ".join(f"{k} {v:.1f} s" for k, v in report.part_seconds.items())
     print(f"main path: {parts}; total {total_s:.1f} s")
     print(f"main path: rank counts on {report.rank_counts_on}, {launches} kernel launches")
+    print(f"main path: scoring kernel launches {json.dumps(scoring)}; plain scoring versions "
+          f"called on cuda tensors {sum(plain_calls.values())} times; part 2 {json.dumps(precision)}")
+    check(scoring == MAIN_SCORE_LAUNCHES,
+          f"the main path's scoring launches {scoring} are not {MAIN_SCORE_LAUNCHES}")
+    check(not any(plain_calls.values()),
+          f"a plain scoring version ran on the card: {plain_calls}")
+    check(precision["violations"] == 0, f"part 2 reported precision violations: {precision}")
     print(f"truth: {json.dumps(truth)}")
     print(f"groups found {truth['groups_found']} (JAX record on its TPU: 29); orders "
           f"recovered {truth['orders_recovered']}/{truth['orders_checked']} (JAX record: 24/24)")
@@ -346,7 +473,68 @@ def phase_main_path(torch, workdir):
           "chromosomes covered by ordered segments")
     check(truth["assembled_entries"] == truth["groups_found"] == truth["entry_lengths_ok"],
           "assembled FASTA entries or their lengths are wrong")
-    return launches, report.cut_indices, paths, genome.resolution
+    return launches, scoring, report.cut_indices, paths, genome.resolution
+
+
+def part2_config(workdir, main_dir, paths, resolution):
+    """A config in ``workdir`` over phase 4's genome whose part 2 starts from
+    phase 4's chromosome groups."""
+    from hic_genome_assembler_tpu_torch.utils import e2e
+
+    config = e2e.write_config(os.path.join(workdir, "config.txt"), workdir, paths, resolution)
+    shutil.copy(os.path.join(main_dir, "files", "chromosomeGroupings.txt"),
+                os.path.join(workdir, "files", "chromosomeGroupings.txt"))
+    return config
+
+
+def phase_part2_cpu(workdir, main_dir, paths, resolution):
+    """Part 2 with ``-device cpu`` (the scoring kernels' plain versions) on
+    phase 4's part-1 files: its files must be byte-equal to phase 4's."""
+    from hic_genome_assembler_tpu_torch import cli
+
+    config = part2_config(workdir, main_dir, paths, resolution)
+    t0 = time.time()
+    with open(SCORE_LOG, "w") as log, contextlib.redirect_stdout(log):
+        cli.main(["-part2", "-config", config, "-device", "cpu", "-mesh", "off"])
+    for name in PART2_FILES:
+        check(filecmp.cmp(os.path.join(workdir, "files", name),
+                          os.path.join(main_dir, "files", name), shallow=False),
+              f"part 2 on the CPU: {name} differs from phase 4's on the card")
+    print(f"part 2 with -device cpu: {time.time() - t0:.1f} s (part-2 wall "
+          f"{part2_wall(SCORE_LOG):.2f} s, {json.dumps(precision_line(SCORE_LOG))}); "
+          f"{' and '.join(PART2_FILES)} byte-equal to phase 4's on the card")
+
+
+def phase_part2_profile(torch, workdir, main_dir, paths, resolution):
+    """Part 2 on the card again, on phase 4's part-1 files, under
+    torch.profiler (CUDA activity only): the device time its kernels and
+    copies take against the run's wall (busy and idle shares; one stream,
+    so the device intervals barely overlap), the count of pageable
+    host-to-device copies, and the kernels that take most device time.
+    Its files must equal phase 4's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hic_genome_assembler_tpu_torch import cli
+
+    config = part2_config(workdir, main_dir, paths, resolution)
+    t0 = time.time()
+    with open(PROFILE_LOG, "w") as log, contextlib.redirect_stdout(log):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cli.main(["-part2", "-config", config, "-device", "cuda", "-mesh", "off"])
+            torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.time() - t0)
+    for name in PART2_FILES:
+        check(filecmp.cmp(os.path.join(workdir, "files", name),
+                          os.path.join(main_dir, "files", name), shallow=False),
+              f"profiled part 2: {name} differs from phase 4's")
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    pageable = sum(e.count for e in events if "HtoD" in e.key and "Pageable" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profiled part 2 on {CARD}: wall {wall_ms:.0f} ms (profiler on), device busy "
+          f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}%; {pageable} pageable "
+          f"host-to-device copies; most device time: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
 
 
 def hmm_inputs(torch, np, T, seed, kind="random"):
@@ -494,6 +682,355 @@ def phase_hmm_path(torch, workdir):
     return launches
 
 
+def score_bound_ms(nbytes, ops):
+    """The least time of one call and what sets it: its bytes over HBM's
+    rate, or its f32 adds and compares over the f32 rate."""
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_score_kernels(torch, np, device="cuda"):
+    """The four scoring kernels against their plain versions on the card, at
+    the main path's shapes and bench.py's combo shape: integer-valued inputs
+    exactly (every f32 sum exact, frequent ties), seeded float inputs within
+    ``sum_bound`` (a group's argmax equal where its top two differ by more
+    than twice the bound), two launches bit-identical; then each timed with
+    CUDA events beside its plain version and its bound.  Returns the kernel
+    records, keyed by name.  (``device="cpu"`` rehearses the phase's own
+    code with the plain versions on both sides.)"""
+    from hic_genome_assembler_tpu_torch.ops import cost, perms
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(5)
+    worst = dict.fromkeys(SCORE_REPLACES, 0.0)
+    n_cases = dict.fromkeys(SCORE_REPLACES, 0)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(dev)
+
+    def table(Sp, Cp1, kind, sizes_np=None):
+        """A random table; with ``sizes_np``, the rows of size-0 (pad)
+        ids are zero, as in every table built from pair profiles."""
+        shape = (Sp, Sp, 4, Cp1)
+        vals = rng.integers(0, 16, shape) if kind == "int" else rng.random(shape)
+        if sizes_np is not None:
+            vals[(sizes_np[:, None] == 0) | (sizes_np[None, :] == 0)] = 0
+        return up(vals.reshape(-1), np.float32)
+
+    def scalar(kind):
+        return up(np.float32(7.0 if kind == "int" else 5 * rng.random()), np.float32).reshape(())
+
+    def widen(args):
+        return [a.double() if a.dtype == torch.float32 else a for a in args]
+
+    def held(name, label, kind, fn, plain, args, n_terms, extra=()):
+        """Kernel ``fn`` against ``plain`` on ``args`` (+ ``extra`` ints);
+        returns the kernel's output."""
+        got, again = fn(*args, *extra), fn(*args, *extra)
+        want = plain(*args, *extra)
+        torch.cuda.synchronize()
+        pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+        check(all(torch.equal(a, b) for a, b in pairs), f"{name} {label}: two launches differ")
+        if isinstance(got, tuple):
+            vals, idx, second = got
+            wvals, widx, wsecond = want
+            # a group's bound is its largest score's (the terms are non-negative)
+            flat = fn_scores[name](*widen(args)).reshape(-1)
+            k = vals.shape[0]
+            flat = torch.cat([flat, flat.new_zeros((-flat.shape[0]) % k)]).reshape(k, -1)
+            bound = torch.from_numpy(sk.sum_bound(n_terms, flat.max(dim=1).values.cpu().numpy())
+                                     ).to(dev)
+            if kind == "int":
+                check(torch.equal(vals, wvals) and torch.equal(idx, widx)
+                      and torch.equal(second, wsecond),
+                      f"{name} {label}: top-k differs from the plain version on integer input")
+                err = 0.0
+            else:
+                # equal values first: -inf in groups of padding alone
+                dv, ds = (torch.where(x == y, 0.0, (x.double() - y.double()).abs())
+                          for x, y in ((vals, wvals), (second, wsecond)))
+                err = float(torch.maximum(dv, ds).max())
+                clear = (wvals.double() - wsecond.double()) > 2 * bound
+                check(bool((dv <= bound).all() and (ds <= bound).all()),
+                      f"{name} {label}: top-k values beyond the bound (max {err:.3g})")
+                check(torch.equal(idx[clear], widx[clear]),
+                      f"{name} {label}: an argmax differs where the top two are apart")
+        else:
+            if kind == "int":
+                check(torch.equal(got, want), f"{name} {label}: differs from the plain version "
+                                              "on integer input")
+                err = 0.0
+            else:
+                exact = plain(*widen(args), *extra)
+                bound = torch.from_numpy(sk.sum_bound(n_terms, exact.abs().cpu().numpy())).to(dev)
+                diff = (got.double() - want.double()).abs()
+                err = float(diff.max())
+                check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
+                check(bool((diff <= bound).all()),
+                      f"{name} {label}: beyond sum_bound (max abs err {err:.3g})")
+        worst[name] = max(worst[name], err)
+        n_cases[name] += 1
+        print(f"kernel == plain: {name} {label}, {kind} input (max abs err {err:.3g}), "
+              "two launches bit-identical")
+        return got
+
+    fn_scores = {"combo_score_topk": sk.combo_scores_plain, "block_score": sk.block_scores_plain}
+
+    def distinct(flat_idx):
+        """How many distinct table values a launch gathers (the bound reads
+        each once), from its flat int64 indices."""
+        return int(torch.unique(flat_idx).numel())
+
+    def table_indices(sizes, orders, orients, pi, pj, Cp1, rows=2048):
+        """The flat table indices of the pairs (pi, pj) of each row of
+        ``orders`` / ``orients`` (int64 [B, W], one orientation row for
+        each order), as the plain versions form them, less the pairs with a
+        pad id (size 0), which the kernels skip; in batches of ``rows``."""
+        Sp, found = sizes.shape[0], []
+        for r0 in range(0, orders.shape[0], rows):
+            o, f = orders[r0:r0 + rows], orients[r0:r0 + rows]
+            sz = sizes[o]
+            offs = torch.cumsum(sz, dim=1) - sz
+            idx = ((o[:, pi] * Sp + o[:, pj]) * 4 + f[:, pi] * 2 + f[:, pj]) * Cp1 \
+                + offs[:, pj] - offs[:, pi]
+            found.append(torch.unique(idx[(sz[:, pi] > 0) & (sz[:, pj] > 0)]))
+        return torch.cat(found)
+    sizes_np = np.zeros(SCORE_SP, dtype=np.int64)
+    sizes_np[: SCORE_SP - 1] = rng.integers(1, 25, SCORE_SP - 1)
+    check(sizes_np.sum() <= SCORE_CP1 - 1, "scoring fixture sizes overrun the table")
+    sizes = up(sizes_np, np.int64)
+    pad = SCORE_SP - 1
+    timing = {}
+
+    # -- pair scores: greedy (B = 112, K + 1 real ids then pads), sliding
+    # window (B = 30,720, every id), and pads scattered inside rows
+    def cand(B, n_real, scatter=False):
+        ids = np.full((B, SCORE_W), pad, dtype=np.int32)
+        for b in range(B):
+            row = rng.permutation(SCORE_SP - 1)[:n_real]
+            if scatter:
+                slots = np.sort(rng.choice(SCORE_W, n_real, replace=False))
+                ids[b, slots] = row
+            else:
+                ids[b, :n_real] = row
+        flags = rng.integers(0, 2, (B, SCORE_W)).astype(np.int32)
+        return up(np.concatenate([ids, flags], axis=1), np.int32)
+
+    n_pair = SCORE_W * (SCORE_W - 1) // 2 + 1
+    pair_cases = {label: cand(B, n_real, scatter)
+                  for label, B, n_real, scatter in SCORE_SHAPES["pair"]}
+    for kind in ("int", "float"):
+        F, c0 = table(SCORE_SP, SCORE_CP1, kind, sizes_np), scalar(kind)
+        for label, cands in pair_cases.items():
+            held("pair_score", label, kind, sk.pair_scores, sk.pair_scores_plain,
+                 [F, sizes, cands, c0], n_pair)
+    for label, B, _n, scatter in SCORE_SHAPES["pair"]:
+        if scatter:
+            continue
+        cands = pair_cases[label]
+        args = (F, sizes, cands, c0)
+        # the distinct table values the batch gathers (pad pairs skipped):
+        # a small batch needs a few of the table's rows, a large one not
+        # every column either
+        n_real = (cands[:, :SCORE_W] != pad).sum(dim=1).double()
+        gathers = int((n_real * (n_real - 1) / 2).sum())
+        pi, pj = (torch.from_numpy(a).to(dev) for a in np.triu_indices(SCORE_W, k=1))
+        table_bytes = 4 * distinct(table_indices(
+            sizes, cands[:, :SCORE_W].long(), cands[:, SCORE_W:].long(), pi, pj, SCORE_CP1))
+        nbytes = cands.numel() * 4 + table_bytes + sizes.numel() * 8 + 4 + B * 4
+        timing[("pair_score", label)] = (
+            cuda_ms(torch, lambda: sk.pair_scores(*args), 50),
+            device_ms(torch, lambda: sk.pair_scores(*args), "pair_score_kernel"),
+            cuda_ms(torch, lambda: sk.pair_scores_plain(*args), 10),
+            *score_bound_ms(nbytes, gathers + B),
+            f"{gathers} gathers; table term {table_bytes / 1e6:.2f} MB of {4 * F.numel() / 1e6:.1f}")
+    del F, pair_cases
+
+    # -- combo top-k: the main path's S = 6 (360 x 64 candidates, k = 64) on
+    # the pair table, and bench.py's S = 8 (20,160 x 256) on a C = 2048 table
+    for S, Sp, Cp1 in SCORE_SHAPES["combo"]:
+        combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+        label = f"S={S} {combo['cid'].shape[0]}x{2 ** S}"
+        cid = up(combo["cid"], np.int32)
+        orients = up(perms.orient_batch(S), np.int32)
+        P = S * (S - 1) // 2
+        for kind in ("int", "float"):
+            F, c0 = table(Sp, Cp1, kind), scalar(kind)
+            idx4 = up(rng.integers(0, F.numel(), (combo["n_combo"], 4)), np.int64)
+            args = [F, idx4, cid, orients, c0]
+            held("combo_score_topk", label, kind, sk.combo_score_topk, sk.combo_score_topk_plain,
+                 args, P + 1, extra=(64,))
+            # the mesh path: scores of a padded batch, then the group epilogue
+            pad_cid = torch.cat([cid, cid[-1:].expand(3, -1)]).contiguous()
+            scores = held("combo_score_topk", label + " scores, 3 pad rows", kind,
+                          sk.combo_scores, sk.combo_scores_plain,
+                          [F, idx4, pad_cid, orients, c0], P + 1)
+            for k in (64, 7):
+                got, want = sk.group_argmax(scores.reshape(-1), k), sk._group_argmax(
+                    scores.reshape(-1), k)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"group_argmax k={k} on {label} scores differs from the plain version")
+            print(f"kernel == plain: group_argmax k=64 and k=7 (ragged) on {label} scores")
+        N = cid.shape[0] * orients.shape[0]
+        nbytes = idx4.numel() * 8 + 4 * distinct(idx4) + cid.numel() * 4 \
+            + orients.numel() * 4 + 4 + 64 * 16
+        timing[("combo_score_topk", label)] = (
+            cuda_ms(torch, lambda: sk.combo_score_topk(*args, 64), 50),
+            device_ms(torch, lambda: sk.combo_score_topk(*args, 64),
+                      ("gather_v4", "topk_tiles", "topk_merge")),
+            cuda_ms(torch, lambda: sk.combo_score_topk_plain(*args, 64), 10),
+            *score_bound_ms(nbytes, N * (P + 2)), f"{N} candidates")
+    del F
+
+    # -- block scores: the escalation's chunk of 2,048 orders x 256 at S = 8
+    # and 360 x 64 at S = 6 (ids of the pair table), and repeated ids
+    ids8 = rng.permutation(SCORE_SP - 1)[:8]
+    block_cases = {f"S={S} {Bo}x{2 ** S}": (ids8[:S][perms.order_batch(S)[:Bo]],
+                                          perms.orient_batch(S))
+                   for S, Bo in SCORE_SHAPES["block"]}
+    block_cases["S=5 repeated ids 300x32"] = (rng.integers(0, 20, (300, 5)), perms.orient_batch(5))
+    timed_block = next(iter(block_cases))
+    for kind in ("int", "float"):
+        F, c0 = table(SCORE_SP, SCORE_CP1, kind, sizes_np), scalar(kind)
+        for label, (orders_np, orients_np) in block_cases.items():
+            S = orders_np.shape[1]
+            args = [F, sizes, up(orders_np, np.int32), up(orients_np, np.int32), c0]
+            held("block_score", label, kind, sk.block_scores, sk.block_scores_plain, args,
+                 S * (S - 1) // 2 + 1)
+            if label == timed_block:
+                held("block_score", label + " top-k", kind,
+                     lambda *a: sk.group_argmax(sk.block_scores(*a).reshape(-1), 64),
+                     lambda *a: sk._group_argmax(sk.block_scores_plain(*a).reshape(-1), 64),
+                     args, S * (S - 1) // 2 + 1)
+                block_args = args
+    Bo, S = block_args[2].shape
+    R, P = block_args[3].shape[0], S * (S - 1) // 2
+    # each order gathers the four orientations' values of each of its pairs
+    pi, pj = (torch.from_numpy(a).to(dev) for a in np.triu_indices(S, k=1))
+    orders = block_args[2].long()
+    base = table_indices(sizes, orders, torch.zeros_like(orders), pi, pj, SCORE_CP1)
+    gathered = base[:, None] + SCORE_CP1 * torch.arange(4, device=dev)[None, :]
+    nbytes = Bo * S * 4 + R * S * 4 + SCORE_SP * 8 + 4 * distinct(gathered) + 4 + Bo * R * 4
+    timing[("block_score", timed_block)] = (
+        cuda_ms(torch, lambda: sk.block_scores(*block_args), 50),
+        device_ms(torch, lambda: sk.block_scores(*block_args), "block_score_kernel"),
+        cuda_ms(torch, lambda: sk.block_scores_plain(*block_args), 10),
+        *score_bound_ms(nbytes, Bo * R * P), f"{Bo * R} candidates")
+    del F, block_args
+
+    # -- pair profiles at cmax 128 and 384 (Sp = 56), both plain builds
+    for top, cmax in SCORE_SHAPES["profiles"]:
+        label = f"cmax={cmax}"
+        p_sizes = np.zeros(SCORE_SP, dtype=np.int64)
+        p_sizes[: SCORE_SP - 1] = [top] + list(rng.integers(1, 1 + top // 20, SCORE_SP - 2))
+        C = int(p_sizes.sum())
+        sz = up(p_sizes, np.int64)
+        for kind in ("int", "float"):
+            m = rng.integers(0, 8, (C, C)) if kind == "int" else rng.random((C, C))
+            M = up(m, np.float32)
+            for chunk, build in ((None, "skew"), (1, "scatter")):
+                if build == "scatter" and kind == "float":
+                    continue  # the scatter build adds with atomics: integers only
+                held("pair_profiles", f"{label} C={C} vs the {build} build", kind,
+                     sk.pair_profiles,
+                     lambda *a, chunk=chunk: sk.pair_profiles_plain(*a, chunk_elems=chunk),
+                     [M, sz], cmax, extra=(cmax,))
+        L = 2 * cmax - 1
+        # the kernel reads the off-diagonal blocks of M (s = t rows are zero)
+        # and writes every row of h
+        off_diagonal = C * C - int((p_sizes ** 2).sum())
+        nbytes = off_diagonal * 4 + SCORE_SP * 8 + 4 * SCORE_SP ** 2 * L * 4
+        ops = 2 * off_diagonal
+        timing[("pair_profiles", label)] = (
+            cuda_ms(torch, lambda: sk.pair_profiles(M, sz, cmax), 50),
+            device_ms(torch, lambda: sk.pair_profiles(M, sz, cmax),
+                      "pair_profiles_kernel"),
+            cuda_ms(torch, lambda: sk.pair_profiles_plain(M, sz, cmax), 10),
+            *score_bound_ms(nbytes, ops), f"C={C}")
+        if cmax == SCORE_SHAPES["profiles"][-1][1]:
+            h = sk.pair_profiles(M, sz, cmax)
+            Wm = up(rng.random((L, SCORE_CP1)), np.float32)
+            matmul_ms = cuda_ms(torch, lambda: torch.matmul(h, Wm), 50)
+            print(f"table F = h @ Wm, [{h.shape[0]}, {L}] @ [{L}, {SCORE_CP1}] (the 16K run's "
+                  f"most frequent shape): torch.matmul {matmul_ms:.4f} ms on {CARD}")
+            del h, Wm
+    del M
+
+    records = {}
+    for (name, label), (ms, dev_ms, plain_ms, bound, bound_by, note) in timing.items():
+        on_device = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"{name} {label} on {CARD}: kernel {ms:.4f} ms a call, {on_device} on the device "
+              f"(profiler), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}; {note}), "
+              f"{100 * bound / ms:.2f}% of it a call")
+        rec = records.setdefault(name, {
+            "name": name, "route": "cuda", "source": SCORE_SOURCE,
+            "replaces": SCORE_REPLACES[name], "max_abs_err": worst[name], "cases": n_cases[name],
+            "library_ms": None})
+        entry = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": bound_by}
+        if "ms" not in rec:  # the first timed shape is the main path's
+            rec.update(entry, shape=label)
+        else:
+            rec[f"at {label}"] = entry
+    records["pair_profiles"]["table_matmul_ms"] = matmul_ms
+    library_bounds()
+    torch.cuda.empty_cache()
+    return records
+
+
+def library_bounds():
+    """Prints the bounds of two device functions the port leaves to PyTorch
+    calls, as the JAX package left them to XLA: device mode's rank sort
+    (``ops/matrix.rank_matrix_desc``, f32 [n, n] in, int32 [n, n] out,
+    about n^2 log2 n compares) at the 16K genome's n, and one EM iteration's
+    products (``ops/gaussian_hmm._log_gaussian_diag`` and ``_m_step``: X and
+    X**2, f64 [T, D], read twice; 16 T D f64 operations) at the HMM path's
+    largest possible fit, T = D = 3,715 (D <= T)."""
+    n, T = N_RANK, 3715
+    rank_ms, rank_by = score_bound_ms(8 * n * n, n * n * math.log2(n))
+    hmm_bytes, hmm_ops = 32 * T * T + 64 * T, 16 * T * T
+    bytes_ms, ops_ms = 1e3 * hmm_bytes / HBM_BYTES_PER_S, 1e3 * hmm_ops / FP64_OPS_PER_S
+    hmm_ms, hmm_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    print(f"bounds on {CARD}: rank_matrix_desc at n={n} {rank_ms:.4f} ms ({rank_by}); "
+          f"an EM iteration's _log_gaussian_diag + _m_step at T=D={T} {hmm_ms:.4f} ms ({hmm_by})")
+
+
+def forced_escalation(torch, np, device):
+    """Part 2's brute force (``part2_order.brute_force_best``) over six
+    one-bin scaffolds: a one-bin scaffold reads the same in both
+    orientations, so all 64 orientations of an order score exactly alike,
+    the winner's group holds its ties, the top-k floor (the largest second
+    maximum) reaches the exact best, and the decision escalates to the dense
+    block scores (``score_batch``).  Returns the decision, the run's
+    escalations and the block kernel's launches."""
+    from hic_genome_assembler_tpu_torch.models import part2_order
+    from hic_genome_assembler_tpu_torch.ops import cost
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    rng = np.random.default_rng(7)
+    m = np.triu(rng.integers(1, 50, (6, 6)).astype(np.float64), 1)
+    scorer = cost.ChromosomeScorer(m + m.T, [1] * 6, device)
+    before = sk.LAUNCHES["block_score"]
+    decision = part2_order.brute_force_best(scorer, list(range(6)), [f"s{i}" for i in range(6)])
+    return decision, scorer.stats.escalations, sk.LAUNCHES["block_score"] - before
+
+
+def phase_escalation(torch, np):
+    """The forced escalation on the card and on the CPU: the same decision,
+    an escalation on both, and the block kernel launched on the card;
+    returns its launches."""
+    reset_launches()
+    got = forced_escalation(torch, np, torch.device("cuda"))
+    want = forced_escalation(torch, np, torch.device("cpu"))
+    print(f"forced escalation: decision {got[0]} on the card, {want[0]} on the CPU; "
+          f"{got[1]} escalations; block_score launched {got[2]} times")
+    check(got[0] == want[0], "the forced escalation decided otherwise on the card")
+    check(got[1] > 0 and want[1] > 0, "the forced escalation did not escalate")
+    check(got[2] > 0, "the forced escalation launched block_score no time")
+    return got[2]
+
+
 def phase_device_mode(torch, np, workdir, paths, resolution, exact_cuts):
     """-part1 with matrixMode = device on the 16K genome of phase 4."""
     from hic_genome_assembler_tpu_torch import cli
@@ -617,7 +1154,8 @@ def phase_mesh_kernels(torch, np):
 
 def phase_mesh_path(torch, workdir, main_dir, paths, resolution):
     """Part 1 then part 2 on a virtual (2, 2) mesh of cuda:0, byte-equal to
-    phase 4; returns the counts kernel's launches in that run."""
+    phase 4; returns the counts kernel's and the scoring kernels' launches
+    in that run."""
     from hic_genome_assembler_tpu_torch import cli
     from hic_genome_assembler_tpu_torch import device as device_mod
     from hic_genome_assembler_tpu_torch.ops import count_kernels
@@ -634,12 +1172,17 @@ def phase_mesh_path(torch, workdir, main_dir, paths, resolution):
     with open(MESH_LOG, "w") as log, contextlib.redirect_stdout(log):
         report = cli.run_parts(var, ["part1", "part2"], rt)
     total_s = time.time() - t0
-    launches = count_kernels.LAUNCHES
+    launches, scoring = count_kernels.LAUNCHES, score_launches()
     echo_timers(MESH_LOG)
     parts = ", ".join(f"{k} {v:.1f} s" for k, v in report.part_seconds.items())
     print(f"mesh path ({rt.mesh.describe()}): {parts}; total {total_s:.1f} s; rank counts on "
-          f"{report.rank_counts_on}, {launches} kernel launches")
+          f"{report.rank_counts_on}, {launches} kernel launches; scoring kernel launches "
+          f"{json.dumps(scoring)}")
     check(launches > 0, "the mesh path launched the rank-count kernel no time")
+    # on a mesh the combo kernel scores each block and the group epilogue
+    # runs on the gathered scores
+    check(scoring == MESH_SCORE_LAUNCHES,
+          f"the mesh path's scoring launches {scoring} are not {MESH_SCORE_LAUNCHES}")
     check(report.rank_counts_on == "mesh 2x2 " + str(dev),
           f"mesh path rank counts lay on {report.rank_counts_on}")
     runs = [("virtual 2x2", workdir)]
@@ -665,7 +1208,7 @@ def phase_mesh_path(torch, workdir, main_dir, paths, resolution):
                   f"{label}: {name} differs from phase 4's")
         print(f"mesh path ({label}): {len(PART1_FILES + PART2_FILES)} part-1 and part-2 files "
               "byte-equal to phase 4's")
-    return launches
+    return launches, scoring
 
 
 def part2_wall(log_path):
@@ -677,12 +1220,9 @@ def part2_wall(log_path):
 
 def phase_ep(workdir, main_dir, paths, resolution):
     """Two CLI processes share the card and part 2's chromosomes; the merged
-    files must equal phase 4's."""
-    from hic_genome_assembler_tpu_torch.utils import e2e
-
-    config = e2e.write_config(os.path.join(workdir, "config.txt"), workdir, paths, resolution)
-    shutil.copy(os.path.join(main_dir, "files", "chromosomeGroupings.txt"),
-                os.path.join(workdir, "files", "chromosomeGroupings.txt"))
+    files must equal phase 4's, and each process must have launched the
+    scoring kernels of its shard; returns each rank's launches."""
+    config = part2_config(workdir, main_dir, paths, resolution)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -708,12 +1248,22 @@ def phase_ep(workdir, main_dir, paths, resolution):
         for log in logs:
             log.close()
     total_s = time.time() - t0
+    rank_launches = []
     for rank, p in enumerate(procs):
         check(p.returncode == 0, f"EP rank {rank} exited with {p.returncode}; see "
                                  f"{EP_LOG.format(rank)}")
         with open(EP_LOG.format(rank)) as log:
-            check(f"- EP shard: process {rank}/2 owns" in log.read(),
-                  f"EP rank {rank} searched no shard")
+            text = log.read()
+        check(f"- EP shard: process {rank}/2 owns" in text, f"EP rank {rank} searched no shard")
+        found = re.findall(r"^\[launches\] (.*)$", text, flags=re.M)
+        check(found, f"EP rank {rank} printed no launch counts")
+        rank_launches.append(json.loads(found[-1]))
+        check(all(rank_launches[-1][name] > 0
+                  for name in ("pair_profiles", "combo_score_topk", "pair_score")),
+              f"EP rank {rank} left a scoring kernel unlaunched: {rank_launches[-1]}")
+    summed = {name: sum(r[name] for r in rank_launches) for name in MAIN_SCORE_LAUNCHES}
+    check(summed == MAIN_SCORE_LAUNCHES,
+          f"the EP ranks' scoring launches sum to {summed}, not {MAIN_SCORE_LAUNCHES}")
     for name in PART2_FILES:
         check(filecmp.cmp(os.path.join(workdir, "files", name),
                           os.path.join(main_dir, "files", name), shallow=False),
@@ -722,7 +1272,9 @@ def phase_ep(workdir, main_dir, paths, resolution):
     print(f"EP: 2 processes, both done in {total_s:.1f} s; part-2 wall rank 0 "
           f"{walls[0]:.2f} s (waits for rank 1 and merges), rank 1 {walls[1]:.2f} s; "
           f"single process (phase 4) {part2_wall(LOG):.2f} s")
-    print(f"EP: merged {' and '.join(PART2_FILES)} byte-equal to phase 4's")
+    print(f"EP: merged {' and '.join(PART2_FILES)} byte-equal to phase 4's; scoring kernel "
+          f"launches rank 0 {json.dumps(rank_launches[0])}, rank 1 {json.dumps(rank_launches[1])}")
+    return rank_launches
 
 
 def main():
@@ -735,8 +1287,13 @@ def main():
     record = phase_kernels(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_dir, hmm_dir, dev_dir = (os.path.join(workdir, d) for d in ("16k", "hmm", "device"))
-        record["launches"], exact_cuts, paths, resolution = phase_main_path(torch, main_dir)
+        record["launches"], scoring, exact_cuts, paths, resolution = phase_main_path(
+            torch, main_dir)
+        phase_part2_cpu(os.path.join(workdir, "cpu"), main_dir, paths, resolution)
+        phase_part2_profile(torch, os.path.join(workdir, "profile"), main_dir, paths, resolution)
         hmm_records = phase_hmm_kernels(torch, np)
+        score_records = phase_score_kernels(torch, np)
+        escalation_launches = phase_escalation(torch, np)
         hmm_launches = phase_hmm_path(torch, hmm_dir)
         # the rank-count record keeps phase 4's count; phase 7 checks its own
         phase_device_mode(torch, np, dev_dir, paths, resolution, exact_cuts)
@@ -744,12 +1301,20 @@ def main():
         record["max_abs_err"] = max(record["max_abs_err"], offset_err)
         record.update(offset_max_abs_err=offset_err, mesh_2x2_ms=round(mesh_ms, 4),
                       one_launch_ms=round(single_ms, 4))
-        record["mesh_launches"] = phase_mesh_path(
+        record["mesh_launches"], mesh_scoring = phase_mesh_path(
             torch, os.path.join(workdir, "mesh"), main_dir, paths, resolution)
-        phase_ep(os.path.join(workdir, "ep"), main_dir, paths, resolution)
+        ep_launches = phase_ep(os.path.join(workdir, "ep"), main_dir, paths, resolution)
     for rec in hmm_records:
         rec["launches"] = hmm_launches[rec["name"]]
-    print(json.dumps({"kernels": [record] + hmm_records}))
+    for name, rec in score_records.items():
+        # each kernel's launches come from its path: phase 4's 16K run, or
+        # (block_score, which runs on escalation only) phase 5b's forced one
+        rec["launches"] = escalation_launches if name == "block_score" else scoring[name]
+        rec.update(main_path_launches=scoring[name], mesh_launches=mesh_scoring[name],
+                   ep_launches=[counts[name] for counts in ep_launches])
+    score_records["combo_score_topk"]["mesh_group_argmax_launches"] = mesh_scoring["group_argmax"]
+    print(json.dumps({"kernels": [record] + hmm_records
+                      + [score_records[name] for name in SCORE_REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

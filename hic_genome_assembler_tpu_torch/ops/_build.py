@@ -96,44 +96,45 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+# The argument types of every C entry point of csrc/*.cu, in order: each
+# pointer and the cudaStream_t (last) as c_void_p, else ctypes would pass a
+# 32-bit int and cut it.  Every entry point returns its cudaError_t as int.
+SIGNATURES = {
+    # R, row stride, n_rows, n_cols, row0, col0, params [K, 3], K, out [K, n_rows]
+    "rank_counts": [_PTR, _I64, _INT, _INT, _INT, _INT, _PTR, _INT, _PTR, _PTR],
+    # log_b [T, 2], log_start [2], log_trans [2, 2], T, scratch [2, T, 2],
+    # gamma [T, 2], xi_sum [2, 2], logprob [1]
+    "hmm_forward_backward": [_PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR],
+    # log_b, log_start, log_trans, T, scratch uint8 [max(T - 1, 1), 2], path int32 [T]
+    "hmm_viterbi": [_PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR],
+    # M [C, C], C, sizes int64 [Sp], Sp, cmax, h [4*Sp*Sp, 2*cmax - 1]
+    "pair_profiles": [_PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR],
+    # F, F's numel, idx4 [n_combo, 4], n_combo, cid [Bo, P], Bo, orients [R, S],
+    # R, S, c0, k, tile, v4 scratch, parts scratch, costs, vals, idx, second
+    "combo_score_topk": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _PTR, _INT, _INT, _PTR, _INT,
+                         _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
+    # x [N], N, k, tile, parts scratch, vals, idx, second
+    "group_topk": [_PTR, _I64, _INT, _I64, _PTR, _PTR, _PTR, _PTR, _PTR],
+    # F, C + 1, sizes, Sp, orders [Bo, S], Bo, S, orients [R, S], R, c0, costs [Bo, R]
+    "block_score": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR],
+    # F, C + 1, sizes, Sp, cand [B, 2*W], B, W, c0, out [B]
+    "pair_score": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR, _PTR],
+}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set every entry point's argument and result types on ``lib``."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     build()
-    lib = ctypes.CDLL(str(BUILD_DIR / _LIB_NAME))
-    lib.rank_counts.argtypes = [
-        ctypes.c_void_p,   # const int32_t* R
-        ctypes.c_int64,    # row stride (elements)
-        ctypes.c_int,      # n_rows
-        ctypes.c_int,      # n_cols
-        ctypes.c_int,      # row0: global row of the block's first row
-        ctypes.c_int,      # col0: global column of the block's first column
-        ctypes.c_void_p,   # const int32_t* params [K, 3]
-        ctypes.c_int,      # K
-        ctypes.c_void_p,   # int32_t* out [K, n_rows]
-        ctypes.c_void_p,   # cudaStream_t
-    ]
-    lib.rank_counts.restype = ctypes.c_int
-    lib.hmm_forward_backward.argtypes = [
-        ctypes.c_void_p,   # const double* log_b [T, 2]
-        ctypes.c_void_p,   # const double* log_start [2]
-        ctypes.c_void_p,   # const double* log_trans [2, 2]
-        ctypes.c_int,      # T
-        ctypes.c_void_p,   # double* scratch [2, T, 2]
-        ctypes.c_void_p,   # double* gamma [T, 2]
-        ctypes.c_void_p,   # double* xi_sum [2, 2]
-        ctypes.c_void_p,   # double* logprob [1]
-        ctypes.c_void_p,   # cudaStream_t
-    ]
-    lib.hmm_forward_backward.restype = ctypes.c_int
-    lib.hmm_viterbi.argtypes = [
-        ctypes.c_void_p,   # const double* log_b [T, 2]
-        ctypes.c_void_p,   # const double* log_start [2]
-        ctypes.c_void_p,   # const double* log_trans [2, 2]
-        ctypes.c_int,      # T
-        ctypes.c_void_p,   # uint8_t* scratch [max(T - 1, 1), 2]
-        ctypes.c_void_p,   # int32_t* path [T]
-        ctypes.c_void_p,   # cudaStream_t
-    ]
-    lib.hmm_viterbi.restype = ctypes.c_int
-    return lib
+    return bind(ctypes.CDLL(str(BUILD_DIR / _LIB_NAME)))

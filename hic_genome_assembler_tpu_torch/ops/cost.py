@@ -14,10 +14,13 @@ the winners are re-scored on the host in float64 with the reference's
 exact summation order, and ``_F32_MARGIN`` bounds which candidates must be
 re-scored (``docs/PRECISION.md``).
 
-The device side is plain torch in this package.  The host float64
-bookkeeping and the decision rules are copied from the JAX module, which
-imports jax; ``PrecisionStats`` is an object each run creates and passes,
-not a process-wide global.
+The device functions are ``ops/score_kernels.py``: on a CUDA device the
+pair profiles, the combo top-k, the block scores and the pair scores are
+hand-written kernels, on the CPU their plain torch versions; the table
+``F = h @ Wm`` is a ``torch.matmul``, as the JAX package left it to XLA.
+The host float64 bookkeeping and the decision rules are copied from the JAX
+module, which imports jax; ``PrecisionStats`` is an object each run creates
+and passes, not a process-wide global.
 
 With a mesh (``parallel.mesh.Mesh``), candidate batches are split over its
 data axis with the JAX package's padding rule, the table and the small
@@ -33,9 +36,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as tnf
 
 from hic_genome_assembler_tpu_torch.ops import oracle
+from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+from hic_genome_assembler_tpu_torch.ops.score_kernels import group_argmax as _group_argmax
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 
 
@@ -85,110 +89,6 @@ def _torch_dtype(dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _skew_profile_chunk(
-    m_pad: torch.Tensor,
-    blk_idx: torch.Tensor,
-    sizes_s: torch.Tensor,
-    chunk_start: int,
-    S: int,
-    k: int,
-) -> torch.Tensor:
-    """Pair profiles for scaffold rows [chunk_start, chunk_start + k):
-    h4 [k, S, 4, L].
-
-    1. ``G[s, t, a, b] = M[offs_s + a, offs_t + b]``: a padded block view
-       built with two index selects (``m_pad`` carries a zero guard
-       row/col for the a >= c_s pad region).
-    2. The four orientation profiles are (anti)diagonal sums of the G
-       planes: e in {0,3} need ``Ddiff[v] = sum_{b-a+cmax-1=v}``, e in
-       {1,2} need ``Dsum[u] = sum_{a+b=u}``.  Both come from one skew
-       (pad each plane row by cmax, flat-reshape so row a lands shifted
-       by a, reduce over a); Ddiff is the skew of the a-reversed plane.
-    3. Per-(s, t) shifts/flips place each (e, m) entry from the stacked
-       [Dsum, Ddiff] profiles (guard slot L = zero):
-
-        e=0 (+,+): m = (b - a) + shift          -> Ddiff[m]
-        e=1 (+,-): m = (ct-1 - (a+b)) + shift   -> Dsum[ct-1+shift-m]
-        e=2 (-,+): m = (a+b) - cs + 1 + shift   -> Dsum[m+cs-1-shift]
-        e=3 (-,-): m = (ct-cs) - (b-a) + shift  -> Ddiff[(ct-cs)+2*shift-m]
-    """
-    dev = m_pad.device
-    c = blk_idx.shape[1]
-    L = 2 * c - 1
-    shift = c - 1
-    rows = blk_idx[chunk_start : chunk_start + k]
-    G = m_pad.index_select(0, rows.reshape(-1)).index_select(1, blk_idx.reshape(-1))
-    G = G.reshape(k, c, S, c).permute(0, 2, 1, 3)          # [k, S, c, c]
-
-    def antidiag(planes):
-        # out[..., u] = sum_a planes[..., a, u - a]
-        padded = tnf.pad(planes, (0, c))
-        flat = padded.reshape(k, S, c * 2 * c)[..., : c * L]
-        return flat.reshape(k, S, c, L).sum(dim=2)
-
-    Dsum = antidiag(G)
-    Ddiff = antidiag(G.flip(2))
-    prof = tnf.pad(torch.stack([Dsum, Ddiff], dim=2), (0, 1))  # [k, S, 2, L+1]
-    m = torch.arange(L, device=dev)
-    cs = sizes_s[chunk_start : chunk_start + k][:, None, None]
-    ct = sizes_s[None, :, None]                            # [1, S, 1]
-    shape = (k, S, L)
-    pos = torch.stack(
-        [
-            m.expand(shape),                                   # e=0 -> Ddiff
-            (ct - 1 + shift - m).expand(shape),                # e=1 -> Dsum
-            (m + cs - 1 - shift).expand(shape),                # e=2 -> Dsum
-            ((ct - cs) + 2 * shift - m).expand(shape),         # e=3 -> Ddiff
-        ],
-        dim=2,
-    )                                                      # [k, S, 4, L]
-    pos = torch.where((pos >= 0) & (pos < L), pos, L)
-    which = torch.tensor([1, 0, 0, 1], device=dev)[None, None, :, None]
-    flat_prof = prof.reshape(k, S, 1, 2 * (L + 1)).expand(k, S, 4, 2 * (L + 1))
-    h4 = torch.gather(flat_prof, 3, which * (L + 1) + pos)
-    s_ids = chunk_start + torch.arange(k, device=dev)
-    eye = s_ids[:, None] == torch.arange(S, device=dev)[None, :]
-    return torch.where(eye[:, :, None, None], 0.0, h4)
-
-
-# transient G budget per chunk: k * cmax * S * cmax floats <= 64M (256MB)
-_SKEW_CHUNK_ELEMS = 64 * 1024 * 1024
-
-
-def _build_pair_profiles(
-    sub: torch.Tensor,
-    sid: torch.Tensor,
-    loc: torch.Tensor,
-    sizes: torch.Tensor,
-    Sp: int,
-    L: int,
-    cmax: int,
-) -> torch.Tensor:
-    """Pair profiles by one scatter-add per orientation (``index_add_``):
-    h[row, m] accumulates every cross-scaffold entry at its
-    orientation-specific offset, row = (s * Sp + t) * 4 + e.  Used when a
-    chromosome's largest scaffold makes the skew chunk exceed its budget."""
-    s, t = sid[:, None], sid[None, :]
-    a, b = loc[:, None], loc[None, :]
-    cs, ct = sizes[sid][:, None], sizes[sid][None, :]
-    base = (s * Sp + t) * 4
-    shift = cmax - 1
-    vals = torch.where(s != t, sub, 0.0).reshape(-1)
-    nrows = 4 * Sp * Sp
-    h = torch.zeros(nrows * L, dtype=sub.dtype, device=sub.device)
-    for e, mm in enumerate(
-        (
-            (b - a) + shift,                 # e=0: (+,+)
-            (ct - 1 - (a + b)) + shift,      # e=1: (+,-)
-            ((a + b) - cs + 1) + shift,      # e=2: (-,+)
-            ((ct - cs) - (b - a)) + shift,   # e=3: (-,-)
-        )
-    ):
-        idx = ((base + e) * L + mm.clamp(0, L - 1)).reshape(-1)
-        h.index_add_(0, idx, vals)
-    return h.reshape(nrows, L)
-
-
 def _profiles_to_table(h: torch.Tensor, wpad: torch.Tensor, shift: int, C: int) -> torch.Tensor:
     """F[row, delta] = sum_m h[row, m] * w(delta + m - shift): one float32
     matmul, re-run per scaffold subset with that subset's weights."""
@@ -197,43 +97,6 @@ def _profiles_to_table(h: torch.Tensor, wpad: torch.Tensor, shift: int, C: int) 
     darg = torch.arange(C + 1, device=dev)[None, :] + (torch.arange(L, device=dev) - shift)[:, None]
     Wm = torch.where((darg >= 1) & (darg <= C - 1), wpad[darg.clamp(0, C)], 0.0)
     return h @ Wm
-
-
-def _block_score_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1: int):
-    """Scores all R orientation combos of each order: P*4 gathers per order
-    and one matmul with the one-hot orientation selector [P*4, R]."""
-    Sp = sizes.shape[0]  # id-space stride of the F table (incl. pad slots)
-    Bo, P = orders.shape[0], pi.shape[0]
-    sz = sizes[orders]
-    offs = torch.cumsum(sz, dim=1) - sz
-    s_i, s_j = orders[:, pi], orders[:, pj]              # [Bo, P]
-    delta = offs[:, pj] - offs[:, pi]                    # [Bo, P]
-    pair_base = (s_i * Sp + s_j) * 4                     # [Bo, P]
-    idx = (pair_base[:, :, None] + torch.arange(4, device=orders.device)) * Cp1 \
-        + delta[:, :, None]                              # [Bo, P, 4]
-    f_vals = F_flat[idx].reshape(Bo, P * 4)
-    return f_vals @ e_onehot + c0
-
-
-def _group_argmax(flat: torch.Tensor, k: int):
-    """Per-group (max, argmax, second-max) over k contiguous groups.
-
-    The global maximum is always returned (it is its own group's max),
-    exact ties in other groups are returned, and within a group the
-    lowest index wins.  The second-max vector is the escalation witness:
-    every candidate dropped inside group g scores < second[g], so
-    ``max(second)`` bounds every dropped candidate's fast score."""
-    n = flat.shape[0]
-    pad = (-n) % k
-    if pad:
-        flat = torch.cat([flat, flat.new_full((pad,), float("-inf"))])
-    groups = flat.reshape(k, -1)
-    local = torch.argmax(groups, dim=1)                  # first max on ties
-    vals = groups.gather(1, local[:, None])[:, 0]
-    idx = torch.arange(k, device=flat.device) * groups.shape[1] + local
-    winner_mask = torch.arange(groups.shape[1], device=flat.device)[None, :] == local[:, None]
-    second = torch.where(winner_mask, float("-inf"), groups).max(dim=1).values
-    return vals, idx, second
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +110,6 @@ def _group_argmax(flat: torch.Tensor, k: int):
 # ---------------------------------------------------------------------------
 
 _COMBO_CACHE: dict = {}
-_ONEHOT_CACHE: dict = {}
 _TRIU_CACHE: dict = {}
 
 
@@ -256,25 +118,6 @@ def _triu_cache(c: int):
     if hit is None:
         hit = _TRIU_CACHE[c] = np.triu_indices(c, k=1)
     return hit
-
-
-def _orient_onehot(S: int, orients: np.ndarray, dtype) -> np.ndarray:
-    """Per-position-pair orientation selector: one-hot[(p*4 + e), r] with
-    e = orients[r, pi]*2 + orients[r, pj].  Cached."""
-    key = (S, orients.tobytes(), dtype.str)
-    hit = _ONEHOT_CACHE.get(key)
-    if hit is not None:
-        return hit
-    pi, pj = np.triu_indices(S, k=1)
-    P = len(pi)
-    R = orients.shape[0]
-    e_pair = (orients[:, pi] * 2 + orients[:, pj]).astype(np.int64)  # [R, P]
-    e_onehot = np.zeros((P * 4, R), dtype=dtype)
-    rows = (np.arange(P)[None, :] * 4 + e_pair).ravel()
-    cols = np.repeat(np.arange(R), P)
-    e_onehot[rows, cols] = 1.0
-    _ONEHOT_CACHE[key] = e_onehot
-    return e_onehot
 
 
 def _combo_index(orders: np.ndarray) -> dict:
@@ -338,30 +181,6 @@ def _combo_index(orders: np.ndarray) -> dict:
     return out
 
 
-def _combo_score_kernel(F_flat, idx4, cid, E, c0):
-    """V4 = F[idx4] [n_combo, 4], vals = V4[cid] [Bo, P, 4], and one
-    matmul folds the 4 orientation variants against the per-position
-    orientation selector E [P, 4, R]."""
-    V4 = F_flat[idx4]
-    vals = V4[cid]
-    Bo, P, _ = vals.shape
-    return vals.reshape(Bo, P * 4) @ E.reshape(P * 4, -1) + c0
-
-
-def _pair_score_kernel(F_flat, sizes, orders, orients, pi, pj, c0, Cp1: int):
-    """Per-candidate (order, orientation) scores: orders and orients are
-    both [B, W].  Pad slots (id with size 0) contribute zero rows of F and
-    zero size."""
-    Sp = sizes.shape[0]
-    sz = sizes[orders]
-    offs = torch.cumsum(sz, dim=1) - sz
-    s_i, s_j = orders[:, pi], orders[:, pj]              # [B, P]
-    e = orients[:, pi] * 2 + orients[:, pj]              # [B, P]
-    delta = offs[:, pj] - offs[:, pi]
-    idx = ((s_i * Sp + s_j) * 4 + e) * Cp1 + delta
-    return F_flat[idx].sum(dim=1) + c0
-
-
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
@@ -414,10 +233,7 @@ class ChromosomeScorer:
         self.L = 2 * self.cmax - 1
         self.C_pad = _round_up(self.C, 256)     # table/delta width
 
-        sid = np.full(self.C_pad, self.S, dtype=np.int64)  # pad bins -> slot S
-        sid[: self.C] = np.repeat(np.arange(self.S), self.sizes)
-        loc = np.zeros(self.C_pad, dtype=np.int64)
-        loc[: self.C] = np.concatenate([np.arange(c) for c in self.sizes])
+        sid = np.repeat(np.arange(self.S), self.sizes)
 
         # Host-side f64 exact bookkeeping: per-scaffold internal diagonal
         # profiles (for c0), internal totals and pairwise cross totals.
@@ -433,49 +249,17 @@ class ChromosomeScorer:
                 )[:max(c, 1)]
             self.intra_total[s] = self.intra_profile[s].sum()
         G = np.zeros((self.C, self.S), dtype=np.float64)
-        G[np.arange(self.C), sid[: self.C]] = 1.0
+        G[np.arange(self.C), sid] = 1.0
         self.cross_total = G.T @ (sub @ G)
 
         dev = self.device
         if device_sub is None:
             device_sub = torch.from_numpy(sub.astype(self._dtype)).to(dev)
-        device_sub = device_sub.to(dev, tdtype)
-        pad_c = self.C_pad - self.C
+        device_sub = device_sub.to(dev, tdtype).contiguous()
         sizes_padded = np.zeros(self.Sp, dtype=np.int64)
         sizes_padded[: self.S] = self.sizes
         self._sizes_d = torch.from_numpy(sizes_padded).to(dev)
-        k = _SKEW_CHUNK_ELEMS // max(self.cmax * self.Sp * self.cmax, 1)
-        if k >= 1:
-            k = min(k, self.Sp)
-            m_pad = tnf.pad(device_sub, (0, pad_c + 1, 0, pad_c + 1))
-            blk_idx = np.full((self.Sp, self.cmax), self.C_pad, dtype=np.int64)
-            for s, (o, c) in enumerate(zip(offsets, self.sizes)):
-                blk_idx[s, :c] = np.arange(o, o + c)
-            blk_d = torch.from_numpy(blk_idx).to(dev)
-            starts = list(range(0, self.Sp - self.Sp % k, k))
-            chunks = [
-                _skew_profile_chunk(m_pad, blk_d, self._sizes_d, s0, self.Sp, k)
-                for s0 in starts
-            ]
-            rem = self.Sp % k
-            if rem:
-                chunks.append(
-                    _skew_profile_chunk(m_pad, blk_d, self._sizes_d, self.Sp - rem, self.Sp, rem)
-                )
-            h4 = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
-            self._h = h4.reshape(self.Sp * self.Sp * 4, self.L)
-        else:
-            # degenerate scale (cmax^2 * Sp alone exceeds the transient
-            # budget): scatter-add build
-            self._h = _build_pair_profiles(
-                tnf.pad(device_sub, (0, pad_c, 0, pad_c)),
-                torch.from_numpy(sid).to(dev),
-                torch.from_numpy(loc).to(dev),
-                self._sizes_d,
-                self.Sp,
-                self.L,
-                self.cmax,
-            )
+        self._h = sk.pair_profiles(device_sub, self._sizes_d, self.cmax)
 
     @property
     def pad_id(self) -> int:
@@ -539,8 +323,8 @@ class SubsetScorer:
             self._rep(t) for t in (self._F_flat, self._sizes_d, self._c0_d)
         )
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.device)
+    def _put(self, a: np.ndarray, dtype=np.int64) -> torch.Tensor:
+        return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(self.device)
 
     @property
     def _data_devices(self) -> List[torch.device]:
@@ -551,31 +335,28 @@ class SubsetScorer:
         return [t.to(dev) for dev in self._data_devices]
 
     def _blocks(self, batch: np.ndarray) -> List[torch.Tensor]:
-        """A candidate batch as one block per data-axis device, padded by
-        repeating its last row (``put_batch_padded``)."""
+        """An int32 candidate batch as one block per data-axis device,
+        padded by repeating its last row (``put_batch_padded``)."""
         if self._mesh is None:
-            return [self._put(batch)]
-        return pm.put_batch_padded(self._mesh, np.ascontiguousarray(batch, dtype=np.int64))[0]
+            return [self._put(batch, np.int32)]
+        return pm.put_batch_padded(self._mesh, np.require(batch, np.int32, ["C", "W"]))[0]
 
     def _gather(self, outs: List[torch.Tensor]) -> torch.Tensor:
         return outs[0] if len(outs) == 1 else pm.gather(outs, self.device)
 
-    def _map_blocks(self, score: Callable, batches: Sequence[np.ndarray]) -> torch.Tensor:
-        """``score(i, *blocks)`` on each data-axis position ``i`` over the
-        batches' blocks, the results gathered on ``self.device``."""
-        return self._gather(
-            [score(i, *blks) for i, blks in enumerate(zip(*map(self._blocks, batches)))]
-        )
+    def _map_blocks(self, score: Callable, batch: np.ndarray) -> torch.Tensor:
+        """``score(i, block)`` on each data-axis position ``i`` over the
+        batch's blocks, the results gathered on ``self.device``."""
+        return self._gather([score(i, blk) for i, blk in enumerate(self._blocks(batch))])
 
-    def _block_costs(self, chunk: np.ndarray, e_r, pi_r, pj_r) -> torch.Tensor:
-        """``_block_score_kernel`` over a chunk of orders: [rows, R], with
-        the mesh's padding rows at the end."""
+    def _block_costs(self, chunk: np.ndarray, orients_r) -> torch.Tensor:
+        """``block_scores`` over a chunk of orders: [rows, R], with the
+        mesh's padding rows at the end."""
         return self._map_blocks(
-            lambda i, blk: _block_score_kernel(
-                self._F_r[i], self._sizes_r[i], blk, e_r[i], pi_r[i], pj_r[i],
-                self._c0_r[i], self.C + 1,
+            lambda i, blk: sk.block_scores(
+                self._F_r[i], self._sizes_r[i], blk, orients_r[i], self._c0_r[i]
             ),
-            [chunk],
+            chunk,
         )
 
     def score_batch(
@@ -587,14 +368,12 @@ class SubsetScorer:
         R = orients.shape[0]
         if self.degenerate:
             return np.zeros(Bo * R, dtype=np.float64)
-        pi, pj = np.triu_indices(S, k=1)
-        e_r = self._rep(torch.from_numpy(_orient_onehot(S, orients, self.parent._dtype)))
-        pi_r, pj_r = self._rep(self._put(pi)), self._rep(self._put(pj))
+        orients_r = self._rep(self._put(orients, np.int32))
         out = np.empty((Bo, R), dtype=np.float64)
         handles = []
         for ofs in range(0, Bo, chunk_orders):
             chunk = orders[ofs : ofs + chunk_orders]
-            handles.append((ofs, chunk.shape[0], self._block_costs(chunk, e_r, pi_r, pj_r)))
+            handles.append((ofs, chunk.shape[0], self._block_costs(chunk, orients_r)))
         for ofs, n_real, scored in handles:
             out[ofs : ofs + n_real] = _host(scored)[:n_real]
         return out.reshape(-1)
@@ -631,12 +410,9 @@ class SubsetScorer:
         if self.degenerate:
             m = min(k, Bo * R)
             return (), lambda host: (np.arange(m), np.zeros(m), -np.inf)
-        e_onehot = _orient_onehot(S, orients, self.parent._dtype)
         if 2 <= S <= 8 and len(np.unique(orders[0])) == S:
-            return self._score_topk_combo_async(orders, orients, e_onehot, k)
-        pi, pj = np.triu_indices(S, k=1)
-        pi_r, pj_r = self._rep(self._put(pi)), self._rep(self._put(pj))
-        e_r = self._rep(torch.from_numpy(e_onehot))
+            return self._score_topk_combo_async(orders, orients, k)
+        orients_r = self._rep(self._put(orients, np.int32))
         handles: List[torch.Tensor] = []
         meta: List[Tuple[int, int, int]] = []  # (ofs, n_real, kk)
         for ofs in range(0, Bo, chunk_orders):
@@ -648,7 +424,7 @@ class SubsetScorer:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], chunk_orders - n_real, axis=0)]
                 )
-            costs = self._block_costs(chunk, e_r, pi_r, pj_r)
+            costs = self._block_costs(chunk, orients_r)
             # groups over the mesh-padded scores, as in the JAX mesh path;
             # padding rows are dropped in finish
             handles.extend(_group_argmax(costs.reshape(-1), min(k, chunk.shape[0] * R)))
@@ -698,32 +474,37 @@ class SubsetScorer:
         idx4 = (rows[:, None] + np.arange(4)) * (C + 1) + delta[:, None]
         return np.where(combo["valid"][:, None], idx4, 0)
 
-    def _score_topk_combo_async(
-        self, orders: np.ndarray, orients: np.ndarray, e_onehot: np.ndarray, k: int
-    ):
+    def _score_topk_combo_async(self, orders: np.ndarray, orients: np.ndarray, k: int):
         """Brute-force top-k via the combo factorization; the candidate ->
-        combo map and its device copy are reused across chromosomes.
-        Returns (handles, finish) — see score_batch_topk_async."""
+        combo map and its device copy are reused across chromosomes.  On one
+        device the scores never leave the kernel; on a mesh each block's
+        scores are gathered first.  Returns (handles, finish) — see
+        score_batch_topk_async."""
         Bo, S = orders.shape
         R = orients.shape[0]
-        P = S * (S - 1) // 2
         combo = _combo_index(orders.astype(np.int64))
         dev_key = tuple(map(str, self._data_devices))
-        ek = ("E_dev", dev_key, e_onehot.tobytes())
-        if ek not in combo:
-            combo[ek] = self._rep(torch.from_numpy(e_onehot.reshape(P, 4, R)))
+        ok = ("orients_dev", dev_key, orients.tobytes())
+        if ok not in combo:
+            combo[ok] = self._rep(self._put(orients, np.int32))
         ck = ("cid_dev", dev_key)
         if ck not in combo:
             combo[ck] = self._blocks(combo["cid"])
-        E_r, cid_blocks = combo[ek], combo[ck]
+        orients_r, cid_blocks = combo[ok], combo[ck]
         idx4_r = self._rep(self._put(self._combo_f_indices(combo)))
-        costs = self._gather([
-            _combo_score_kernel(self._F_r[i], idx4_r[i], cid, E_r[i], self._c0_r[i])
-            for i, cid in enumerate(cid_blocks)
-        ])
-        n_pad = costs.shape[0]
+        n_pad = sum(cid.shape[0] for cid in cid_blocks)
         kk = min(k, Bo * R)
-        vals_d, idx_d, second_d = _group_argmax(costs.reshape(-1), min(k, n_pad * R))
+        groups = min(k, n_pad * R)
+        if len(cid_blocks) == 1:
+            vals_d, idx_d, second_d = sk.combo_score_topk(
+                self._F_r[0], idx4_r[0], cid_blocks[0], orients_r[0], self._c0_r[0], groups
+            )
+        else:
+            costs = self._gather([
+                sk.combo_scores(self._F_r[i], idx4_r[i], cid, orients_r[i], self._c0_r[i])
+                for i, cid in enumerate(cid_blocks)
+            ])
+            vals_d, idx_d, second_d = _group_argmax(costs.reshape(-1), groups)
 
         def finish(host):
             vals, idx, second = host[0], host[1], host[2]
@@ -755,13 +536,10 @@ class SubsetScorer:
         B, W = orders.shape
         if self.degenerate:
             return (), lambda host: np.zeros(B, dtype=np.float64)
-        pi, pj = np.triu_indices(W, k=1)
-        pi_r, pj_r = self._rep(self._put(pi)), self._rep(self._put(pj))
+        # orders and orients go up as one int32 tensor [B, 2*W]
         out = self._map_blocks(
-            lambda i, o, r: _pair_score_kernel(
-                self._F_r[i], self._sizes_r[i], o, r, pi_r[i], pj_r[i], self._c0_r[i], self.C + 1,
-            ),
-            [orders, orients],
+            lambda i, cand: sk.pair_scores(self._F_r[i], self._sizes_r[i], cand, self._c0_r[i]),
+            np.concatenate([orders, orients], axis=1),
         )
         return (out,), lambda host: np.asarray(host[0], dtype=np.float64)[:B]
 

@@ -65,7 +65,7 @@ def test_scatter_profile_build_matches(chromosome, scorers, monkeypatch):
     """The scatter-add build (taken when the skew chunk would exceed its
     budget) gives the skew build's profiles, in both packages."""
     sub, sizes = chromosome
-    monkeypatch.setattr(cost, "_SKEW_CHUNK_ELEMS", 1)
+    monkeypatch.setattr(cost.sk, "SKEW_CHUNK_ELEMS", 1)
     monkeypatch.setattr(jax_cost, "_SKEW_CHUNK_ELEMS", 1)
     scatter = cost.ChromosomeScorer(sub, sizes, CPU)._h.numpy()
     jax_scatter = np.asarray(jax_cost.ChromosomeScorer(sub, sizes, dtype=np.float32)._h)

@@ -24,6 +24,7 @@ from hic_genome_assembler_tpu_torch.ops import cost  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import count_kernels as ck  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, matrix  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import perms  # noqa: E402
+from hic_genome_assembler_tpu_torch.ops import score_kernels as sk  # noqa: E402
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hic_genome_assembler_tpu_torch.utils import e2e, fixtures  # noqa: E402
 
@@ -296,7 +297,11 @@ def test_cli_on_cuda_byte_equal_to_cpu(cuda, tmp_path, monkeypatch):
         cfg = e2e.write_config(
             str(tmp_path / f"{name}.cfg"), str(tmp_path / name), paths, genome.resolution, settings
         )
+        before = dict(sk.LAUNCHES)
         runs[name] = cli.main(parts + ["-config", cfg, "-device", name])
+        if name == "cuda":  # part 2 ran through the scoring kernels
+            for kernel in ("pair_profiles", "combo_score_topk", "pair_score"):
+                assert sk.LAUNCHES[kernel] > before[kernel], kernel
     assert runs["cuda"].rank_counts_on.startswith("cuda")
     files = sorted(os.listdir(tmp_path / "cpu" / "files"))
     assert "assembled.fasta" in files
@@ -406,3 +411,159 @@ def test_other_part1_branches_on_cuda_byte_equal_to_cpu(cuda, tmp_path, monkeypa
     for name in files:
         assert filecmp.cmp(tmp_path / "cuda" / "files" / name,
                            tmp_path / "cpu" / "files" / name, shallow=False), name
+
+
+# ---------------------------------------------------------------------------
+# the scoring kernels against their plain versions, at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def _close_or_equal(got, want, kind, n_terms, abs_sum):
+    """Integer-valued inputs: equal; floats: within ``sum_bound``."""
+    if kind == "int":
+        assert torch.equal(got, want)
+    else:
+        bound = torch.from_numpy(sk.sum_bound(n_terms, abs_sum.abs().cpu().numpy()))
+        assert bool(((got.double() - want.double()).abs().cpu() <= bound).all())
+
+
+def _score_table(rng, Sp, Cp1, kind, sizes=None):
+    shape = (Sp, Sp, 4, Cp1)
+    vals = rng.integers(0, 16, shape) if kind == "int" else rng.random(shape)
+    if sizes is not None:  # a pad id's rows are zero, as in every table from profiles
+        vals[(sizes[:, None] == 0) | (sizes[None, :] == 0)] = 0
+    return torch.from_numpy(vals.astype(np.float32).reshape(-1))
+
+
+def _scalar(rng, kind):
+    return torch.tensor(7.0 if kind == "int" else float(5 * rng.random()), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("B,n_real", [(112, 30), (4096, 55), (64, 1)])
+def test_pair_scores_kernel_matches_plain(cuda, B, n_real, kind):
+    """The 16K run's table (Sp = 56, C + 1 = 769) and width (W = 56):
+    greedy rows of K + 1 ids then pads, sliding-window rows, one-id rows."""
+    rng = np.random.default_rng(B + n_real)
+    Sp, Cp1, W = 56, 769, 56
+    sizes = np.zeros(Sp, dtype=np.int64)
+    sizes[: Sp - 1] = rng.integers(1, 14, Sp - 1)
+    ids = np.full((B, W), Sp - 1, dtype=np.int32)
+    for b in range(B):
+        ids[b, :n_real] = rng.permutation(Sp - 1)[:n_real]
+    cand = np.concatenate([ids, rng.integers(0, 2, (B, W)).astype(np.int32)], axis=1)
+    F = _score_table(rng, Sp, Cp1, kind, sizes).to(cuda)
+    args = (F, torch.from_numpy(sizes).to(cuda), torch.from_numpy(cand).to(cuda),
+            _scalar(rng, kind).to(cuda))
+    before = sk.LAUNCHES["pair_score"]
+    got, again = sk.pair_scores(*args), sk.pair_scores(*args)
+    assert sk.LAUNCHES["pair_score"] == before + 2 and torch.equal(got, again)
+    exact = sk.pair_scores_plain(args[0].double(), args[1], args[2], args[3].double())
+    _close_or_equal(got, sk.pair_scores_plain(*args), kind, W * (W - 1) // 2 + 1, exact)
+    with pytest.raises(ValueError):
+        sk.pair_scores(args[0].double(), args[1], args[2], args[3].double())
+
+
+def _topk_matches(got, want, kind, n_terms, group_max):
+    if kind == "int":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
+    bound = torch.from_numpy(sk.sum_bound(n_terms, group_max.cpu().numpy())).to(got[0].device)
+    for x, y in ((got[0], want[0]), (got[2], want[2])):
+        assert bool((torch.where(x == y, 0.0, (x.double() - y.double()).abs()) <= bound).all())
+    clear = (want[0].double() - want[2].double()) > 2 * bound
+    assert torch.equal(got[1][clear], want[1][clear])
+
+
+def _group_max(scores, k):
+    flat = scores.reshape(-1)
+    return torch.cat([flat, flat.new_zeros((-flat.shape[0]) % k)]).reshape(k, -1).max(dim=1).values
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("S,k", [(6, 64), (8, 64), (5, 7)])
+def test_combo_topk_kernel_matches_plain(cuda, S, k, kind):
+    """The main path's S = 6 batch (23,040 candidates), bench.py's S = 8
+    (5.16M) and a ragged k = 7; the mesh form (scores, then the group
+    epilogue) on a padded batch too."""
+    rng = np.random.default_rng(S * k)
+    combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+    F = _score_table(rng, 9, 2049, kind).to(cuda)
+    args = [F, torch.from_numpy(rng.integers(0, F.numel(), (combo["n_combo"], 4))).to(cuda),
+            torch.from_numpy(np.ascontiguousarray(combo["cid"], dtype=np.int32)).to(cuda),
+            torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda), _scalar(rng, kind).to(cuda)]
+    n_terms = S * (S - 1) // 2 + 1
+    got, again = sk.combo_score_topk(*args, k), sk.combo_score_topk(*args, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exact = sk.combo_scores_plain(args[0].double(), *args[1:4], args[4].double())
+    _topk_matches(got, sk.combo_score_topk_plain(*args, k), kind, n_terms, _group_max(exact, k))
+    padded = list(args)
+    padded[2] = torch.cat([args[2], args[2][-1:].expand(3, -1)]).contiguous()
+    scores = sk.combo_scores(*padded)
+    _close_or_equal(scores, sk.combo_scores_plain(*padded), kind, n_terms,
+                    sk.combo_scores_plain(args[0].double(), *padded[1:4], args[4].double()))
+    flat = scores.reshape(-1)
+    assert all(torch.equal(a, b) for a, b in zip(sk.group_argmax(flat, k),
+                                                 sk._group_argmax(flat, k)))
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("S,Bo", [(8, 2048), (6, 360), (1, 1)])
+def test_block_scores_kernel_matches_plain(cuda, S, Bo, kind):
+    """The escalation's chunk at S = 8, the main path's S = 6 batch, and a
+    one-scaffold chromosome (no pairs: every score is c0)."""
+    rng = np.random.default_rng(S + Bo)
+    Sp, Cp1 = 56, 769
+    sizes = np.zeros(Sp, dtype=np.int64)
+    sizes[: Sp - 1] = rng.integers(1, 14, Sp - 1)
+    ids = rng.permutation(Sp - 1)[:S]
+    orders = ids[perms.order_batch(S)[:Bo]].astype(np.int32)
+    F = _score_table(rng, Sp, Cp1, kind, sizes).to(cuda)
+    args = [F, torch.from_numpy(sizes).to(cuda), torch.from_numpy(orders).to(cuda),
+            torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda), _scalar(rng, kind).to(cuda)]
+    got, again = sk.block_scores(*args), sk.block_scores(*args)
+    assert torch.equal(got, again)
+    exact = sk.block_scores_plain(args[0].double(), *args[1:4], args[4].double())
+    n_terms = S * (S - 1) // 2 + 1
+    _close_or_equal(got, sk.block_scores_plain(*args), kind, n_terms, exact)
+    k = min(64, got.numel())
+    _topk_matches(sk.group_argmax(got.reshape(-1), k),
+                  sk._group_argmax(sk.block_scores_plain(*args).reshape(-1), k), kind, n_terms,
+                  _group_max(exact, k))
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("top,cmax", [(120, 128), (380, 384)])
+def test_pair_profiles_kernel_matches_plain(cuda, top, cmax, kind):
+    """Sp = 56 with the largest scaffold filling cmax, against the skew
+    build and (integers: its atomics are exact there) the scatter build."""
+    rng = np.random.default_rng(top)
+    sizes = np.zeros(56, dtype=np.int64)
+    sizes[:55] = [top] + list(rng.integers(1, 1 + top // 20, 54))
+    C = int(sizes.sum())
+    m = rng.integers(0, 8, (C, C)) if kind == "int" else rng.random((C, C))
+    M, sz = torch.from_numpy(m.astype(np.float32)).to(cuda), torch.from_numpy(sizes).to(cuda)
+    got, again = sk.pair_profiles(M, sz, cmax), sk.pair_profiles(M, sz, cmax)
+    assert torch.equal(got, again) and got.shape == (4 * 56 * 56, 2 * cmax - 1)
+    exact = sk.pair_profiles_plain(M.double(), sz, cmax)
+    _close_or_equal(got, sk.pair_profiles_plain(M, sz, cmax), kind, cmax, exact)
+    if kind == "int":
+        assert torch.equal(got, sk.pair_profiles_plain(M, sz, cmax, 1))
+
+
+def test_forced_escalation_on_cuda_equals_cpu(cuda):
+    """Six one-bin scaffolds: every orientation of an order ties exactly, so
+    the brute force escalates to the dense block scores; the card decides
+    as the CPU does, through the block kernel."""
+    rng = np.random.default_rng(7)
+    m = np.triu(rng.integers(1, 50, (6, 6)).astype(np.float64), 1)
+    names = [f"s{i}" for i in range(6)]
+    decisions = {}
+    for dev in (cuda, CPU):
+        scorer = cost.ChromosomeScorer(m + m.T, [1] * 6, dev)
+        before = sk.LAUNCHES["block_score"]
+        decisions[dev.type] = part2_order.brute_force_best(scorer, list(range(6)), names)
+        assert scorer.stats.escalations > 0
+        if dev.type == "cuda":
+            assert sk.LAUNCHES["block_score"] > before
+    assert decisions["cuda"] == decisions["cpu"]

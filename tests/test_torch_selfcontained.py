@@ -269,3 +269,164 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     (trace,) = (tmp_path / "trace").glob("trace_*.json")
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("matmul" in str(event.get("name", "")) for event in events)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA sources, their ctypes binding and the scoring wrappers' checks
+# ---------------------------------------------------------------------------
+
+CU_FILES = sorted(p.name for p in (REPO / "hic_genome_assembler_tpu_torch" / "csrc").glob("*.cu"))
+
+
+def _entry_points(text):
+    """``{name: [parameter declarations]}`` of the ``extern "C"`` functions."""
+    import re
+
+    found = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text)
+    return {name: [p.strip() for p in params.split(",")] for name, params in found}
+
+
+@pytest.mark.parametrize("cu", CU_FILES)
+def test_cuda_source_stands_alone_and_names_what_it_replaces(cu):
+    """Each kernel source includes only system headers (it builds from the
+    checkout alone), names the JAX function it replaces, and says what
+    bounds it on the card."""
+    text = (REPO / "hic_genome_assembler_tpu_torch" / "csrc" / cu).read_text()
+    includes = [line for line in text.splitlines() if line.startswith("#include")]
+    assert includes and all(line.startswith("#include <") for line in includes), includes
+    header = text.split("#include", 1)[0]
+    assert "hic_genome_assembler_tpu/ops/" in header
+    assert "bounds it on this card" in text
+
+
+def test_every_entry_point_has_its_ctypes_signature():
+    """``_build.SIGNATURES`` holds every ``extern "C"`` function of csrc/*.cu
+    with one ctypes type a parameter: c_void_p for pointers and the stream,
+    c_int64 for int64_t, c_int for int."""
+    import ctypes
+
+    from hic_genome_assembler_tpu_torch.ops import _build
+
+    entries = {}
+    for cu in CU_FILES:
+        entries.update(_entry_points((REPO / "hic_genome_assembler_tpu_torch" / "csrc" / cu)
+                                     .read_text()))
+    assert set(entries) == set(_build.SIGNATURES)
+    assert {"pair_profiles", "combo_score_topk", "group_topk", "block_score",
+            "pair_score"} <= set(entries)
+    for name, params in entries.items():
+        want = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
+                else ctypes.c_int64 if p.startswith("int64_t") else ctypes.c_int
+                for p in params]
+        assert _build.SIGNATURES[name] == want, name
+
+
+def test_library_binds_every_entry_point(monkeypatch):
+    """``_build.library()`` sets each symbol's argument and result types on
+    the loaded library (here a stand-in for the nvcc-built one)."""
+    import types
+
+    from hic_genome_assembler_tpu_torch.ops import _build
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "build", lambda: 0.0)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    _build.library.cache_clear()
+    try:
+        lib = _build.library()
+        assert lib.path.endswith("libkernels.so")
+        for name, argtypes in _build.SIGNATURES.items():
+            assert getattr(lib, name).argtypes == argtypes
+            assert getattr(lib, name).restype is _build.ctypes.c_int
+    finally:
+        _build.library.cache_clear()
+
+
+def _score_args():
+    """Valid CPU arguments of the pair, combo, block and profile wrappers."""
+    Sp, Cp1, W, S = 3, 5, 4, 3
+    F = torch.zeros(4 * Sp * Sp * Cp1)
+    sizes = torch.tensor([1, 2, 0])
+    c0 = torch.tensor(0.0)
+    cand = torch.zeros((2, 2 * W), dtype=torch.int32)
+    combo = (F, torch.zeros((4, 4), dtype=torch.int64), torch.zeros((2, 3), dtype=torch.int32),
+             torch.zeros((8, S), dtype=torch.int32), c0)
+    block = (F, sizes, torch.zeros((2, S), dtype=torch.int32),
+             torch.zeros((8, S), dtype=torch.int32), c0)
+    return {"pair": (F, sizes, cand, c0), "combo": combo, "block": block,
+            "profiles": (torch.zeros((3, 3)), sizes, 64)}
+
+
+def _call(kind, args):
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    if kind == "combo":
+        return sk.combo_score_topk(*args, 4)
+    return {"pair": sk.pair_scores, "block": sk.block_scores,
+            "profiles": sk.pair_profiles}[kind](*args)
+
+
+def _meta_table():
+    """A table too wide for int32 deltas, on the meta device (no memory)."""
+    return torch.empty(4 * 9 * 2**31, device="meta")
+
+
+_BAD_ARGS = {
+    # name: (wrapper, position, replacement or a function of the valid argument)
+    "pair: int64 candidates": ("pair", 2, lambda a: a.long()),
+    "pair: odd candidate width": ("pair", 2, lambda a: a[:, :7].contiguous()),
+    "pair: strided candidates": ("pair", 2, lambda a: torch.zeros((8, 2), dtype=torch.int32).t()),
+    "pair: int32 sizes": ("pair", 1, lambda a: a.int()),
+    "pair: float64 c0 with a float32 table": ("pair", 3, lambda a: a.double()),
+    "pair: table not a multiple of 4*Sp*Sp": ("pair", 0, lambda a: a[:-1]),
+    "pair: 2-D table": ("pair", 0, lambda a: a.reshape(4, -1)),
+    "pair: sizes on another device": ("pair", 1, lambda a: a.to("meta")),
+    "combo: cid not [Bo, S*(S-1)/2]": ("combo", 2, lambda a: torch.zeros((2, 4), dtype=torch.int32)),
+    "combo: idx4 not [n, 4]": ("combo", 1, lambda a: torch.zeros((4, 3), dtype=torch.int64)),
+    "combo: int64 orientations": ("combo", 3, lambda a: a.long()),
+    "block: orients of another width": ("block", 3, lambda a: torch.zeros((8, 2), dtype=torch.int32)),
+    "block: S above 31": ("block", 2, lambda a: torch.zeros((2, 32), dtype=torch.int32)),
+    "profiles: a matrix that is not square": ("profiles", 0, lambda a: torch.zeros((3, 4))),
+    "profiles: cmax past shared memory": ("profiles", 2, lambda a: 20000),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_ARGS))
+def test_score_wrappers_reject_bad_arguments(case):
+    """The argument checks run before either version: on the CPU too."""
+    kind, pos, bad = _BAD_ARGS[case]
+    args = list(_score_args()[kind])
+    _call(kind, args)  # the valid arguments pass
+    args[pos] = bad(args[pos])
+    with pytest.raises(ValueError):
+        _call(kind, args)
+
+
+def test_score_wrappers_check_the_int64_index_range_and_k():
+    """A table whose width C + 1 reaches 2**31 (deltas are int32 in the
+    kernels) is refused, as are group counts outside 1..65535 and devices
+    other than cuda and cpu."""
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    meta = torch.device("meta")
+    sizes = torch.zeros(3, dtype=torch.int64, device=meta)
+    c0 = torch.zeros((), device=meta)
+    cand = torch.zeros((2, 8), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        sk.pair_scores(_meta_table(), sizes, cand, c0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sk.pair_scores(torch.zeros(4 * 9 * 5, device=meta), sizes, cand, c0)
+    combo = _score_args()["combo"]
+    for k in (0, 65536):
+        with pytest.raises(ValueError):
+            sk.combo_score_topk(*combo, k)
+    with pytest.raises(ValueError):
+        sk.group_argmax(torch.zeros((2, 2)), 1)
