@@ -13,20 +13,37 @@ passes or fails the run:
    each kernel's registers, shared memory and spills as ptxas reports them;
 3. kernels: the rank-count kernel against its plain torch version on the
    card, exact integer equality at the 16K genome's shapes and at the
-   test shapes, then both timed with CUDA events;
+   test shapes, in int16 (pad_rank's choice at this size) and int32, then
+   the K=8 growing and K=64 fixed batches timed (CUDA events a call, the
+   device time from torch.profiler, and with launches queued behind a spin
+   kernel, ``queued_ms``) beside the read-once bound (the
+   union of the batch's prefixes) and the bytes a kernel streams that
+   reads each scan's own prefix;
 4. main path: the 16K-bin north-star genome through
    ``hic_genome_assembler_tpu_torch.cli.main`` (-part1 -part2 -part3
    -part4, device cuda, mesh off), with the planted-truth checks; part 2
    must launch the scoring kernels exactly as often as the fixture needs
    (``MAIN_SCORE_LAUNCHES``: 29 profiles, 29 combo top-k, 1,206 pair scores,
    no block scores), call no plain scoring version on the card and report
-   0 precision violations.
+   0 precision violations.  Every rank-count launch's batch is recorded
+   (K, growing or fixed, the prefix elements a scan and the union; the
+   batches in build/chip_smoke_rank_batches.json) and every pair-score
+   launch's (B, W, real ids a row), and printed.
    Then -part2 with -device cpu (the plain versions) on the same part-1
    files: its chromosomeOrdering.txt and plotOrder.txt must be byte-equal
    to the card's.  Last, -part2 on the card again under torch.profiler:
    device busy and idle shares, pageable host-to-device copies, the
-   kernels with most device time.  Output in build/chip_smoke_pipeline.log,
-   build/chip_smoke_part2_cpu.log and build/chip_smoke_part2_profile.log;
+   kernels with most device time; then -part1 the same way: part 1's
+   device busy share and the rank-count kernel's device time.  Output in
+   build/chip_smoke_pipeline.log, build/chip_smoke_part2_cpu.log,
+   build/chip_smoke_part2_profile.log and build/chip_smoke_part1_profile.log;
+4b. replay: every rank-count batch of phase 4, in order, on phase 3's
+   random matrix padded as RankCounts pads it (17,184), in int16 and int32:
+   each output equal to the plain version, then each batch's device time
+   (``queued_ms``, L2 flushed before each launch) beside its read-once
+   bound, summed, and the largest batch's; the previous kernel's times
+   (``OLD_REPLAY``, from another run) are printed beside them, and stay out
+   of the kernels' JSON record;
 5. HMM kernels: the chunked-scan forward-backward and Viterbi kernels
    timed with CUDA events at T = 3,715 and 17,162 (before any plain loop
    runs), then held against their plain torch loops on the card at T = 1,
@@ -48,7 +65,12 @@ passes or fails the run:
    its bound (bytes: each input read once, of the table only the distinct
    values the launch gathers, of the matrix only the off-diagonal blocks
    the profile kernel reads), and the table product h @ Wm at its most
-   frequent shape.  Then
+   frequent shape.  The pair-score batches include one shaped as the
+   sliding window builds it; the previous kernel's times (``OLD_PAIR``,
+   from another run) are printed beside them, and stay out of the kernels'
+   JSON record.  The
+   top-k sweep (``topk_sweep``: 1, 2, 3 and 20+ tiles, ragged groups,
+   integer ties, 5 seeds) runs three times.  Then
    part 2's brute force with a forced escalation, on the card and on the
    CPU: the same decision, and the block kernel launched;
 6. HMM path: the CLI (-part1 -part2 -part3 -part4, device cuda, hmm = True)
@@ -60,7 +82,8 @@ passes or fails the run:
    must equal numpy's stable argsort, reversed, of the same f32 input;
    output in build/chip_smoke_device.log;
 8. mesh kernels: phase 3's 17,162-bin matrix and batches in the (2, 2) and
-   (4, 1) block layouts of a mesh; the kernel with each block's offsets must
+   (4, 1) block layouts of a mesh, in int16 and int32; the kernel with each
+   block's offsets must
    equal its plain version (max abs err 0) and the blocks' sums one launch
    on the whole matrix; a virtual-mesh RankCounts must equal the
    single-device one; the K=8 growing batch timed over the (2, 2) blocks
@@ -81,10 +104,13 @@ passes or fails the run:
 Each of phases 4, 5b (the forced escalation), 6, 7 and 9 sets the launch
 counts of its kernels to 0 just before it drives its path and fails if a
 kernel of that path was not launched; phase 10's processes start from 0.
-Phase 1 prints the card's nvidia-smi name and power limit, and phase 5b
-repeats them beside each time it prints.  The second-to-last stdout line is the kernels' JSON record (each
-kernel's launches from its path: block_score's from the forced escalation,
-the others' from phase 4), the last line {"ok": true, "device": {...}}.
+Phase 1 prints the card's nvidia-smi name and power limit, and phases 3,
+4b and 5b repeat them beside each time they print.  A device time from
+torch.profiler is printed only where the trace holds one event for each
+launch the wrapper counted (``device_ms``), else "not measured".  The
+second-to-last stdout line is the kernels' JSON record (each kernel's
+launches from its path: block_score's from the forced escalation, the
+others' from phase 4), the last line {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -126,6 +152,7 @@ HMM_EXTRA = ((3715, "neg_inf"), (17162, "neg_inf"), (1025, "ties"), (17162, "tie
 HMM_TIMED_T = (3715, 17162)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP64_OPS_PER_S = 34e12             # H100 SXM data sheet, f64 outside the tensor cores
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 int32 lanes x ~1.98 GHz
 HMM_GENOME_N = 8192                # make_hmm_genome(8192): 3,715 bins
 N_RANK_ROWS = 64                   # device-mode rank rows held against numpy
 MESH_LOG = REPO / "build" / "chip_smoke_mesh.log"
@@ -152,13 +179,29 @@ SCORE_SP, SCORE_CP1 = 56, 769      # the 16K run's widest tables: 12,544 rows x 
 SCORE_W = 56                       # its candidate width (55 scaffolds rounded up to 8)
 SCORE_LOG = REPO / "build" / "chip_smoke_part2_cpu.log"
 PROFILE_LOG = REPO / "build" / "chip_smoke_part2_profile.log"
+PART1_PROFILE_LOG = REPO / "build" / "chip_smoke_part1_profile.log"
+BATCHES_LOG = REPO / "build" / "chip_smoke_rank_batches.json"  # phase 4's rank-count batches
+REPLAY_REPS = 3                    # device-timed launches of each replayed batch
+# The previous kernels' times at the same shapes, printed beside this run's
+# and never put in its JSON record: phases 4b and 5b of this script run on
+# the kernels of commit 7c07379 (the replay timed by torch.profiler, which
+# caught every event there; the pair scores with launches queued), on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, in another run.
+_OLD_FROM = "commit 7c07379's kernels, another run, NVIDIA H100 80GB HBM3, 700.00 W"
+OLD_REPLAY = {"from": _OLD_FROM, "batches_ms": 90.5032, "largest_ms": 35.1792}
+OLD_PAIR = {"from": _OLD_FROM,
+            "window B=30720": {"ms": 0.4123, "queued_ms": 0.4115},
+            "window-shaped B=30720": {"ms": 0.1116, "queued_ms": 0.1111},
+            "greedy B=112": {"ms": 0.0251, "queued_ms": 0.0068}}
 # the scoring phase's shapes: pair-score batches (label, B, real ids a row,
-# pads scattered inside rows), combo batches (S, Sp, C + 1 of the table),
+# rows random, shaped as the sliding window's, or with pads scattered
+# inside), combo batches (S, Sp, C + 1 of the table),
 # block batches (S, orders), profile builds (largest scaffold, cmax);
 # the first of each is the one timed on the main path
 SCORE_SHAPES = {
-    "pair": (("window B=30720", 30720, 55, False), ("greedy B=112", 112, 30, False),
-             ("pads inside B=509", 509, 40, True)),
+    "pair": (("window B=30720", 30720, 55, "random"),
+             ("window-shaped B=30720", 30720, 55, "window"),
+             ("greedy B=112", 112, 30, "random"), ("pads inside B=509", 509, 40, "scatter")),
     "combo": ((6, SCORE_SP, SCORE_CP1), (8, 9, 2049)),
     "block": ((8, 2048), (6, 360)),
     "profiles": ((380, 384), (120, 128)),
@@ -207,25 +250,62 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernel, iters=20):
+def device_ms(torch, fn, kernel, launches, iters=20):
     """Mean device milliseconds that a call of ``fn`` spends in the CUDA
     kernels whose names hold ``kernel`` (a string, or a tuple of them: a
-    call of several kernels), from torch.profiler's trace of
-    ``iters`` warm calls (free of the host's time per call, which CUDA
-    events over back-to-back calls include once it exceeds the kernel's);
-    None where the trace shows no such kernel."""
+    call of several kernels, the one every call launches first), from
+    torch.profiler's trace of ``iters`` warm calls (free of the host's time
+    per call, which CUDA events over back-to-back calls include once it
+    exceeds the kernel's).  ``launches()`` reads the wrapper's launch count:
+    the trace must hold one event of the first kernel for each launch the
+    wrapper counted in the window, and of each other kernel none or as many.
+    Otherwise the trace missed events and the time is None (printed as "not
+    measured"): never a number from another window."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    launched = launches() - before
     names = (kernel,) if isinstance(kernel, str) else kernel
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if any(name in e.key for name in names))
-    return total_us / 1e3 / iters if total_us else None
+    found = [(sum(e.count for e in prof.key_averages() if name in e.key),
+              sum(e.self_device_time_total for e in prof.key_averages() if name in e.key))
+             for name in names]
+    events = [count for count, _us in found]
+    if launched == 0 or events[0] != launched or any(c not in (0, launched) for c in events):
+        print(f"  device time of {names} not measured: {events} trace events for {launched} "
+              "launches")
+        return None
+    return sum(us for _count, us in found) / 1e3 / iters
+
+
+def queued_ms(torch, fn, iters=20, cold=None):
+    """Mean milliseconds a call of ``fn`` takes on the device when the host
+    runs ahead: the stream is held by a spin kernel of about 25 ms while the
+    host enqueues a start event, ``iters`` calls and an end event, so the
+    card runs them back to back and the events hold no host time.  None
+    where the card reached the start event before the host had enqueued the
+    end (a wrapper that waits for the device, or a spin too short).
+    ``cold()``, where given, runs on the device before the spin (an L2
+    flush)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if cold is not None:
+        cold()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    ahead = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / iters if ahead else None
 
 
 def sha256(path):
@@ -353,50 +433,98 @@ def phase_kernels(torch, np):
         print(f"kernel == plain: {label} ({len(params)} scans, {tuple(mat.shape)}"
               f"{'' if mat.is_contiguous() else ' view'})")
 
-    def rank_matrix(n, seed):
-        return ck.pad_rank(random_rank(torch, np, n, seed))
-
     n = N_RANK
     t0 = time.time()
-    R = rank_matrix(n, 0)
-    print(f"rank matrix n={n}: padded {tuple(R.shape)} int32 on {R.device} "
-          f"({time.time() - t0:.1f} s to make)")
+    R = ck.pad_rank(random_rank(torch, np, n, 0))
+    # the element type pad_rank chooses (int16 at this size) and int32: two
+    # instantiations of the kernel, both held to the plain version
+    kinds = [R.dtype] + ([torch.int32] if R.dtype != torch.int32 else [])
+    mats = {dtype: R.to(dtype) for dtype in kinds}
+    print(f"rank matrix n={n}: padded {tuple(R.shape)} {R.dtype} on {R.device} "
+          f"({time.time() - t0:.1f} s to make); held in {[str(k) for k in kinds]}")
     starts, growing, fixed = kernel_batches(np, n)
-    compare("growing K=8 at 16K", R, growing)
-    compare("fixed K=64 at 16K", R, fixed)
-    compare("fixed K=64 at 16K, 2048-column view", R[:, :2048], fixed)
-    compare("fixed K=64 at 16K, 4096-column view", R[:, :4096], fixed)
-    small = rank_matrix(603, 2)
-    compare("growing n=603", small, [[s, 0, 1] for s in (0, 1, 7, 300, 601)])
-    compare("fixed n=603", small, [[0, 5, 0], [3, 77, 0], [100, 400, 0], [0, 602, 0]])
-    rect = rank_matrix(3000, 5)
-    compare("fixed n=3000, 2048-column view", rect[:, :2048],
-            [[0, 5, 0], [3, 77, 0], [100, 640, 0], [900, 2500, 0], [2940, 2999, 0]])
+    for dtype in kinds:
+        small = ck.pad_rank(random_rank(torch, np, 603, 2)).to(dtype)
+        rect = ck.pad_rank(random_rank(torch, np, 3000, 5)).to(dtype)
+        for label, mat, params in (
+                ("growing K=8 at 16K", mats[dtype], growing),
+                ("fixed K=64 at 16K", mats[dtype], fixed),
+                ("fixed K=64 at 16K, 2048-column view", mats[dtype][:, :2048], fixed),
+                ("fixed K=64 at 16K, 4096-column view", mats[dtype][:, :4096], fixed),
+                ("growing + fixed K=72 at 16K", mats[dtype], growing + fixed),
+                ("growing n=603", small, [[s, 0, 1] for s in (0, 1, 7, 300, 601)]),
+                ("fixed n=603", small, [[0, 5, 0], [3, 77, 0], [100, 400, 0], [0, 602, 0]]),
+                ("fixed n=3000, 2048-column view", rect[:, :2048],
+                 [[0, 5, 0], [3, 77, 0], [100, 640, 0], [900, 2500, 0], [2940, 2999, 0]])):
+            compare(f"{label} {dtype}", mat, params)
+        del small, rect
 
-    # timing: the K=8 growing batch, warm, CUDA events over repeated launches
+    # timing: warm, CUDA events over repeated launches, and the device time
     n_r, n_c = R.shape
-    rows = np.arange(n_r)
-    kernel_bytes = 4 * sum(int(np.clip(rows - s, 0, n_c).sum()) for s in starts)
-    plain_bytes = 4 * sum(n_r * min(n_c, max(n_r - 1 - s, 0)) for s in starts)
-    ms = cuda_ms(torch, lambda: ck.counts_many(R, growing), 20)
+    launches = lambda: ck.LAUNCHES  # noqa: E731
+    timed = {}
+    for label, params in (("growing K=8", growing), ("fixed K=64", fixed)):
+        for dtype in kinds:
+            mat = mats[dtype]
+            bound, bound_by, per_scan, union, ops = rank_bound(
+                np, ck, params, n_r, n_c, mat.element_size())
+            ms = cuda_ms(torch, lambda: ck.counts_many(mat, params), 20)
+            dev_ms = device_ms(torch, lambda: ck.counts_many(mat, params), "rank_counts_",
+                               launches)
+            queued = queued_ms(torch, lambda: ck.counts_many(mat, params))
+            timed[(label, dtype)] = (ms, dev_ms, queued, bound, bound_by)
+            on_device, in_queue = ("not measured" if x is None else (
+                f"{x:.4f} ms, {100 * bound / x:.1f}% of the bound") for x in (dev_ms, queued))
+            print(f"{label} at n={n}, {dtype} on {CARD}: kernel {ms:.4f} ms a call, on the "
+                  f"device {on_device} (profiler), {in_queue} with launches queued (CUDA "
+                  f"events); bound {bound:.4f} ms ({bound_by}: the union of the "
+                  f"prefixes read once, {union / 1e6:.1f}M elements, "
+                  f"{mat.element_size() * union / 1e9:.3f} GB, "
+                  f"and the int32 counts; {ops / 1e6:.1f}M nested compares); a kernel that "
+                  f"reads each scan's own prefix streams {per_scan / 1e6:.1f}M elements, "
+                  f"{mat.element_size() * per_scan / 1e9:.3f} GB")
     plain_ms = cuda_ms(torch, lambda: ck.counts_many_plain(R, growing), 5)
-    print(f"growing K=8 at n={n}: kernel {ms:.4f} ms, {kernel_bytes / ms / 1e6:.1f} GB/s "
-          f"of the {kernel_bytes / 1e9:.3f} GB prefix triangle it reads; "
-          f"plain {plain_ms:.4f} ms, {plain_bytes / plain_ms / 1e6:.1f} GB/s of the "
-          f"{plain_bytes / 1e9:.3f} GB column slices it scans (one pass each; its "
-          f"temporaries add more)")
-    # the least time: the prefix triangle each scan must read, the int32
-    # counts it writes and its parameters, over HBM's rate (its integer
-    # compares and adds, 3 an element, take less at the card's int32 rate)
-    bound_ms = 1e3 * (kernel_bytes + 4 * len(growing) * (n_r + 3)) / HBM_BYTES_PER_S
-    print(f"growing K=8 at n={n}: bound {bound_ms:.4f} ms (bytes), {100 * bound_ms / ms:.1f}% "
-          "of it; no single PyTorch call computes a masked count over a per-row prefix")
-    del R, small, rect
+    print(f"growing K=8 at n={n}: plain {plain_ms:.4f} ms; no single PyTorch call computes "
+          "a masked count over a per-row prefix")
+    ms, dev_ms, queued, bound, bound_by = timed[("growing K=8", R.dtype)]
+    record = {"name": "rank_counts", "route": "cuda", "source": KERNEL_SOURCE,
+              "replaces": REPLACES, "max_abs_err": max_err, "shape": f"growing K=8 {R.dtype}",
+              "ms": ms, "device_ms": dev_ms, "queued_ms": queued, "plain_ms": plain_ms,
+              "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    for (label, dtype), (ms, dev_ms, queued, bound, bound_by) in timed.items():
+        if (label, dtype) != ("growing K=8", R.dtype):
+            record[f"at {label} {dtype}"] = {"ms": ms, "device_ms": dev_ms, "queued_ms": queued,
+                                             "bound_ms": bound, "bound_by": bound_by}
+    del R, mats
     torch.cuda.empty_cache()
-    return {"name": "rank_counts", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES, "max_abs_err": max_err,
-            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    return record
+
+
+def nested_compares(np, ck, params, n_rows, n_cols, row0=0, col0=0):
+    """One compare for each element of each group's union prefix: the
+    growing scans are one group, the fixed scans one group a start."""
+    p = np.asarray(params, dtype=np.int64).reshape(-1, 3)
+    grow = p[:, 2] == 1
+    groups = [p[grow]] + [p[~grow & (p[:, 0] == s)] for s in np.unique(p[~grow, 0])]
+    return sum(ck.batch_prefix_elements(g, n_rows, n_cols, row0, col0)[1]
+               for g in groups if len(g))
+
+
+def rank_bound(np, ck, params, n_rows, n_cols, elem_bytes, row0=0, col0=0):
+    """The least time of one rank-count launch: ``(ms, "bytes" or
+    "operations", per-scan elements, union elements, compares)``.  Bytes:
+    the union of the batch's prefixes (per row, the widest), each element
+    read once at ``elem_bytes``, the params read once and the int32 counts
+    written once, at HBM's rate.  Operations: one int32 compare for each
+    element of each group's union prefix (``nested_compares``), at the
+    card's int32 rate."""
+    per_scan, union = ck.batch_prefix_elements(params, n_rows, n_cols, row0, col0)
+    ops = nested_compares(np, ck, params, n_rows, n_cols, row0, col0)
+    K = len(params)
+    bytes_ms = 1e3 * (elem_bytes * union + 12 * K + 4 * K * n_rows) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return bound, by, per_scan, union, ops
 
 
 def random_rank(torch, np, n, seed):
@@ -442,7 +570,8 @@ def phase_main_path(torch, workdir):
     # their meshes and processes with this run
     argv = ["-part1", "-part2", "-part3", "-part4", "-config", config, "-device", "cuda",
             "-mesh", "off"]
-    with plain_scorers_on_cuda() as plain_calls:
+    with plain_scorers_on_cuda() as plain_calls, pair_recorder() as pair_record, \
+            rank_recorder() as rank_record:
         reset_launches()
         t0 = time.time()
         with open(LOG, "w") as log, contextlib.redirect_stdout(log):
@@ -450,6 +579,10 @@ def phase_main_path(torch, workdir):
         total_s = time.time() - t0
         launches, scoring = count_kernels.LAUNCHES, score_launches()
     truth = e2e.truth_checks(genome, os.path.join(workdir, "files"))
+    summarize_rank_launches(rank_record)
+    summarize_pair_launches(pair_record)
+    with open(BATCHES_LOG, "w") as handle:
+        json.dump([dict(rec, params=rec["params"].tolist()) for rec in rank_record], handle)
     precision = precision_line(LOG)
     echo_timers(LOG)
     parts = ", ".join(f"{k} {v:.1f} s" for k, v in report.part_seconds.items())
@@ -473,7 +606,96 @@ def phase_main_path(torch, workdir):
           "chromosomes covered by ordered segments")
     check(truth["assembled_entries"] == truth["groups_found"] == truth["entry_lengths_ok"],
           "assembled FASTA entries or their lengths are wrong")
-    return launches, scoring, report.cut_indices, paths, genome.resolution
+    check(len(rank_record) == launches, f"{len(rank_record)} recorded rank-count batches for "
+                                        f"{launches} launches")
+    return launches, scoring, report.cut_indices, paths, genome.resolution, rank_record
+
+
+@contextlib.contextmanager
+def rank_recorder():
+    """Records the batch of every ``counts_many`` call on a CUDA matrix
+    while the block runs: {"params": int32 [K, 3], "shape": (n_rows,
+    n_cols), "offsets": (row0, col0), "dtype": the matrix's element type}."""
+    import numpy as np
+
+    from hic_genome_assembler_tpu_torch.ops import count_kernels as ck
+
+    calls = []
+    original = ck.counts_many
+
+    def recording(rank_mat, params, row0=0, col0=0):
+        if rank_mat.device.type == "cuda":
+            calls.append({"params": np.asarray(params, dtype=np.int32).reshape(-1, 3).copy(),
+                          "shape": tuple(rank_mat.shape), "offsets": (row0, col0),
+                          "dtype": str(rank_mat.dtype)})
+        return original(rank_mat, params, row0, col0)
+
+    ck.counts_many = recording
+    try:
+        yield calls
+    finally:
+        ck.counts_many = original
+
+
+@contextlib.contextmanager
+def pair_recorder():
+    """Records every ``pair_scores`` call on a CUDA table while the block
+    runs: (B, W, real ids of each row, a device tensor read afterwards)."""
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    calls = []
+    original = sk.pair_scores
+
+    def recording(F_flat, sizes, cand, c0):
+        if F_flat.device.type == "cuda":
+            W = cand.shape[1] // 2
+            calls.append((cand.shape[0], W, (sizes[cand[:, :W].long()] > 0).sum(dim=1)))
+        return original(F_flat, sizes, cand, c0)
+
+    sk.pair_scores = recording
+    try:
+        yield calls
+    finally:
+        sk.pair_scores = original
+
+
+def summarize_rank_launches(record):
+    """Prints phase 4's rank-count batches: growing or fixed, K, distinct
+    starts, the prefix elements read once a scan and read once a batch."""
+    import numpy as np
+
+    from hic_genome_assembler_tpu_torch.ops import count_kernels as ck
+
+    kinds = {}
+    total_scan = total_union = 0
+    for i, rec in enumerate(record):
+        p = rec["params"]
+        grow = p[:, 2] == 1
+        kind = "growing" if grow.all() else ("fixed" if not grow.any() else "mixed")
+        per_scan, union = ck.batch_prefix_elements(p, *rec["shape"], *rec["offsets"])
+        total_scan, total_union = total_scan + per_scan, total_union + union
+        distinct = len(np.unique(np.c_[grow, p[:, 0], np.where(grow, 0, p[:, 1])], axis=0))
+        kinds.setdefault(kind, []).append(len(p))
+        print(f"  rank_counts launch {i}: {kind} K={len(p)} ({distinct} distinct scans, "
+              f"{len(np.unique(p[:, 0]))} starts) on {rec['shape']} {rec['dtype']}; prefix "
+              f"elements {per_scan} a scan, {union} the union")
+    print(f"main path rank_counts: {len(record)} launches "
+          + ", ".join(f"{kind} {len(ks)} (K {sorted(ks)})" for kind, ks in kinds.items())
+          + f"; prefix elements {total_scan} read once a scan ({4 * total_scan / 1e9:.1f} GB "
+          f"int32), {total_union} read once a batch ({2 * total_union / 1e9:.2f} GB int16, "
+          f"{4 * total_union / 1e9:.2f} GB int32)")
+
+
+def summarize_pair_launches(calls):
+    """Prints phase 4's pair-score launches as a histogram of (B, W, real
+    ids a row)."""
+    hist = {}
+    for B, W, real in calls:
+        values = sorted(set(real.cpu().tolist()))
+        key = (B, W, values[0] if len(values) == 1 else f"{values[0]}-{values[-1]}")
+        hist[key] = hist.get(key, 0) + 1
+    print(f"main path pair_score: {len(calls)} launches; (B, W, real ids a row): launches "
+          + ", ".join(f"{k}: {v}" for k, v in sorted(hist.items(), key=lambda kv: -kv[1])))
 
 
 def part2_config(workdir, main_dir, paths, resolution):
@@ -537,6 +759,110 @@ def phase_part2_profile(torch, workdir, main_dir, paths, resolution):
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
 
 
+def phase_part1_profile(torch, workdir, paths, resolution, exact_cuts):
+    """-part1 on phase 4's genome on the card under torch.profiler (CUDA
+    activity only): its device busy and idle shares, and the device time of
+    every rank_counts launch, its events held to the launches counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hic_genome_assembler_tpu_torch import cli
+    from hic_genome_assembler_tpu_torch.ops import count_kernels
+    from hic_genome_assembler_tpu_torch.utils import e2e
+
+    config = e2e.write_config(os.path.join(workdir, "config.txt"), workdir, paths, resolution)
+    reset_launches()
+    t0 = time.time()
+    with open(PART1_PROFILE_LOG, "w") as log, contextlib.redirect_stdout(log):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            report = cli.main(["-part1", "-config", config, "-device", "cuda", "-mesh", "off"])
+            torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.time() - t0)
+    check(report.cut_indices == exact_cuts, "profiled part 1 found other cuts than phase 4")
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    rank = [e for e in events if "rank_counts_" in e.key]
+    n_events = sum(e.count for e in rank)
+    rank_ms = sum(e.self_device_time_total for e in rank) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    measured = n_events == count_kernels.LAUNCHES
+    print(f"profiled part 1 on {CARD}: wall {wall_ms:.0f} ms (profiler on), device busy "
+          f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}%; rank_counts "
+          + (f"{rank_ms:.3f} ms on the device over {n_events} launches" if measured else
+             f"not measured ({n_events} trace events for {count_kernels.LAUNCHES} launches)")
+          + "; most device time: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
+    return rank_ms if measured else None
+
+
+def phase_replay(torch, np, record):
+    """4b: every rank-count batch phase 4 launched, in order, on phase 3's
+    random 17,162-bin matrix padded as RankCounts pads it (the bytes depend
+    on the batches, not the values), in the element type RankCounts chooses
+    and in int32: each output held to the plain version, then each batch
+    timed on the device (``queued_ms``: CUDA events with the host ahead) with
+    L2 flushed before each launch, as the main path meets the matrix cold.
+    Returns the replay's record."""
+    from hic_genome_assembler_tpu_torch.ops import count_kernels as ck
+    from hic_genome_assembler_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda")
+    n = N_RANK
+    t = pm.pad_to_multiple(n, 32)
+    dtype = ck.rank_dtype(t)
+    full = random_rank(torch, np, n, 0)
+    mats = {}
+    for dt in dict.fromkeys([dtype, torch.int32]):
+        mats[dt] = torch.full((t, t), -1, dtype=dt, device=dev)
+        mats[dt][:n, :n] = full
+    del full
+    check(all(rec["shape"] == (t, t) and rec["offsets"] == (0, 0) for rec in record),
+          f"phase 4's batches were not launched on one {t}x{t} block")
+    max_err = 0
+    for rec in record:
+        want = ck.counts_many_plain(mats[dtype], rec["params"])
+        for dt, mat in mats.items():
+            err = int((ck.counts_many(mat, rec["params"]).long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"replay {dt} K={len(rec['params'])}: kernel differs from plain")
+    print(f"replay: {len(record)} batches of phase 4 == plain in {[str(d) for d in mats]} "
+          f"on {tuple(mats[dtype].shape)} (max abs err {max_err})")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    largest = max(range(len(record)), key=lambda i: len(record[i]["params"]))
+    out = {"batches": len(record), "max_abs_err": max_err,
+           "largest_K": len(record[largest]["params"])}
+    for dt, mat in mats.items():
+        per = [[queued_ms(torch, lambda: ck.counts_many(mat, rec["params"]), 1, flush.zero_)
+                for _ in range(REPLAY_REPS)] for rec in record]
+        bounds = [rank_bound(np, ck, rec["params"], t, t, mat.element_size()) for rec in record]
+        bound_ms = sum(b[0] for b in bounds)
+        scan_gb = mat.element_size() * sum(b[2] for b in bounds) / 1e9
+        union_gb = mat.element_size() * sum(b[3] for b in bounds) / 1e9
+        by = "/".join(sorted({b[1] for b in bounds}))
+        if any(None in times for times in per):
+            print(f"replay {dt} on {CARD}: device times not measured (a launch reached the "
+                  f"card before the host was ahead); bound {bound_ms:.4f} ms")
+            out[str(dt)] = {"device_ms": None, "bound_ms": bound_ms, "bound_by": by}
+            continue
+        per = [sum(times) / REPLAY_REPS for times in per]
+        total = sum(per)
+        print(f"replay {dt} on {CARD}: {len(record)} batches {total:.4f} ms on the device "
+              f"(CUDA events, mean of {REPLAY_REPS}, L2 flushed, the plan's upload included), "
+              f"the K={out['largest_K']} batch {per[largest]:.4f} ms; read-once bound "
+              f"{bound_ms:.4f} ms ({by}: union {union_gb:.3f} GB), {100 * bound_ms / total:.1f}% "
+              f"of it; a kernel that reads each scan's own prefix streams {scan_gb:.1f} GB")
+        print("  per batch (K, device ms, bound ms): " + ", ".join(
+            f"({len(rec['params'])}, {ms:.4f}, {b[0]:.4f})"
+            for rec, ms, b in zip(record, per, bounds)))
+        out[str(dt)] = {"device_ms": total, "largest_ms": per[largest], "bound_ms": bound_ms,
+                        "bound_by": by}
+    print(f"replay with the previous kernel ({OLD_REPLAY['from']}): "
+          f"{OLD_REPLAY['batches_ms']} ms for the batches, {OLD_REPLAY['largest_ms']} ms for "
+          f"the K={out['largest_K']} batch")
+    del mats, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def hmm_inputs(torch, np, T, seed, kind="random"):
     """log_b [T, 2], log_start [2], log_trans [2, 2] on the card.  ``kind``:
     "random" (normal log-densities), "neg_inf" (a zero transmat entry),
@@ -589,7 +915,9 @@ def phase_hmm_kernels(torch, np):
     for T, args in timed_args.items():
         for name, fn, _plain in calls:
             times[(name, T)] = [cuda_ms(torch, lambda: fn(*args), 200),
-                                device_ms(torch, lambda: fn(*args), name[4:] + "_kernel")]
+                                device_ms(torch, lambda: fn(*args), name[4:] + "_kernel",
+                                          lambda: hk.LAUNCHES[name]),
+                                queued_ms(torch, lambda: fn(*args))]
     worst = {"logprob_rel": 0.0, "gamma_abs": 0.0, "xi_rel": 0.0, "max_abs": 0.0}
     flips = 0
     cases = [(T, "random") for T in HMM_T] + list(HMM_EXTRA)
@@ -614,26 +942,27 @@ def phase_hmm_kernels(torch, np):
           f"{json.dumps(worst)}; Viterbi paths identical everywhere")
     for T, args in timed_args.items():
         for name, _fn, plain in calls:
-            (ms, dev_ms), (bound, bound_by) = times[(name, T)], hmm_bound_ms(name, T)
+            (ms, dev_ms, queued), (bound, bound_by) = times[(name, T)], hmm_bound_ms(name, T)
             plain_ms = cuda_ms(torch, lambda: plain(*args), 1)
             times[(name, T)] += [plain_ms, bound, bound_by]
-            on_device = "not measured" if dev_ms is None else (
-                f"{dev_ms:.4f} ms, {100 * bound / dev_ms:.4f}% of the bound")
+            on_device, in_queue = ("not measured" if x is None else (
+                f"{x:.4f} ms, {100 * bound / x:.4f}% of the bound") for x in (dev_ms, queued))
             print(f"{name} T={T}: kernel {ms:.4f} ms a call ({1e6 * ms / T:.1f} ns per frame), "
-                  f"on the device {on_device} (profiler); plain {plain_ms:.4f} ms, bound "
-                  f"{bound:.6f} ms ({bound_by})")
+                  f"on the device {on_device} (profiler), {in_queue} with launches queued (CUDA "
+                  f"events); plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by})")
     records = []
     for name in ("hmm_forward_backward", "hmm_viterbi"):
-        (ms, dev, plain_ms, bound, bound_by), (ms2, dev2, plain2, bound2, bound_by2) = (
+        (ms, dev, queued, plain_ms, bound, bound_by), (ms2, dev2, queued2, plain2, bound2,
+                                                       bound_by2) = (
             times[(name, T)] for T in HMM_TIMED_T)
         records.append({
             "name": name, "route": "cuda", "source": HMM_SOURCE, "replaces": HMM_REPLACES[name],
             "max_abs_err": flips if name == "hmm_viterbi" else worst["max_abs"],
             "max_err": {"paths_differ_frames": flips} if name == "hmm_viterbi" else worst,
-            "T": HMM_TIMED_T[0], "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "at_T_17162": {"ms": ms2, "device_ms": dev2, "plain_ms": plain2, "bound_ms": bound2,
-                           "bound_by": bound_by2},
+            "T": HMM_TIMED_T[0], "ms": ms, "device_ms": dev, "queued_ms": queued,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "at_T_17162": {"ms": ms2, "device_ms": dev2, "queued_ms": queued2, "plain_ms": plain2,
+                           "bound_ms": bound2, "bound_by": bound_by2},
         })
     return records
 
@@ -804,35 +1133,53 @@ def phase_score_kernels(torch, np, device="cuda"):
     timing = {}
 
     # -- pair scores: greedy (B = 112, K + 1 real ids then pads), sliding
-    # window (B = 30,720, every id), and pads scattered inside rows
-    def cand(B, n_real, scatter=False):
+    # window (B = 30,720: random rows of every id, and rows shaped as the
+    # window builds them), and pads scattered inside rows
+    def cand(B, n_real, shape):
         ids = np.full((B, SCORE_W), pad, dtype=np.int32)
+        flags = rng.integers(0, 2, (B, SCORE_W)).astype(np.int32)
+        if shape == "window":
+            # part2_order._scan_coro's _window_candidates: a base order of
+            # the real ids, 16 window positions x (60 orders x 32 orientations
+            # of its 5 slots), the rest of each row the base's
+            w = 5
+            orders_w, orients_w = perms.order_batch(w), perms.orient_batch(w)
+            B_w = len(orders_w) * len(orients_w)
+            check(B == 16 * B_w, f"a window batch holds 16 x {B_w} rows, not {B}")
+            idx_w = np.repeat(np.asarray(orders_w, dtype=np.int64), len(orients_w), axis=0)
+            orient_blk = np.tile(np.asarray(orients_w, dtype=np.int32), (len(orders_w), 1))
+            base_o, base_f = ids[0].copy(), flags[0].copy()
+            base_o[:n_real] = rng.permutation(SCORE_SP - 1)[:n_real]
+            ids[:], flags[:] = base_o, base_f
+            for k in range(16):
+                blk = slice(k * B_w, (k + 1) * B_w)
+                ids[blk, k:k + w] = base_o[k + idx_w]
+                flags[blk, k:k + w] = orient_blk
+            return up(np.concatenate([ids, flags], axis=1), np.int32)
         for b in range(B):
             row = rng.permutation(SCORE_SP - 1)[:n_real]
-            if scatter:
-                slots = np.sort(rng.choice(SCORE_W, n_real, replace=False))
-                ids[b, slots] = row
+            if shape == "scatter":
+                ids[b, np.sort(rng.choice(SCORE_W, n_real, replace=False))] = row
             else:
                 ids[b, :n_real] = row
-        flags = rng.integers(0, 2, (B, SCORE_W)).astype(np.int32)
         return up(np.concatenate([ids, flags], axis=1), np.int32)
 
     n_pair = SCORE_W * (SCORE_W - 1) // 2 + 1
-    pair_cases = {label: cand(B, n_real, scatter)
-                  for label, B, n_real, scatter in SCORE_SHAPES["pair"]}
+    pair_cases = {label: cand(B, n_real, shape)
+                  for label, B, n_real, shape in SCORE_SHAPES["pair"]}
     for kind in ("int", "float"):
         F, c0 = table(SCORE_SP, SCORE_CP1, kind, sizes_np), scalar(kind)
         for label, cands in pair_cases.items():
             held("pair_score", label, kind, sk.pair_scores, sk.pair_scores_plain,
                  [F, sizes, cands, c0], n_pair)
-    for label, B, _n, scatter in SCORE_SHAPES["pair"]:
-        if scatter:
+    for label, B, _n, shape in SCORE_SHAPES["pair"]:
+        if shape == "scatter":
             continue
         cands = pair_cases[label]
         args = (F, sizes, cands, c0)
-        # the distinct table values the batch gathers (pad pairs skipped):
-        # a small batch needs a few of the table's rows, a large one not
-        # every column either
+        # the distinct table values the batch gathers (pad pairs skipped): a
+        # small batch needs a few of the table's rows, a large one not every
+        # column either
         n_real = (cands[:, :SCORE_W] != pad).sum(dim=1).double()
         gathers = int((n_real * (n_real - 1) / 2).sum())
         pi, pj = (torch.from_numpy(a).to(dev) for a in np.triu_indices(SCORE_W, k=1))
@@ -841,10 +1188,13 @@ def phase_score_kernels(torch, np, device="cuda"):
         nbytes = cands.numel() * 4 + table_bytes + sizes.numel() * 8 + 4 + B * 4
         timing[("pair_score", label)] = (
             cuda_ms(torch, lambda: sk.pair_scores(*args), 50),
-            device_ms(torch, lambda: sk.pair_scores(*args), "pair_score_kernel"),
+            device_ms(torch, lambda: sk.pair_scores(*args), "pair_score_",
+                      lambda: sk.LAUNCHES["pair_score"]),
+            queued_ms(torch, lambda: sk.pair_scores(*args)),
             cuda_ms(torch, lambda: sk.pair_scores_plain(*args), 10),
             *score_bound_ms(nbytes, gathers + B),
-            f"{gathers} gathers; table term {table_bytes / 1e6:.2f} MB of {4 * F.numel() / 1e6:.1f}")
+            f"{gathers} gathers; table term {table_bytes / 1e6:.2f} MB of "
+            f"{4 * F.numel() / 1e6:.1f}")
     del F, pair_cases
 
     # -- combo top-k: the main path's S = 6 (360 x 64 candidates, k = 64) on
@@ -878,7 +1228,9 @@ def phase_score_kernels(torch, np, device="cuda"):
         timing[("combo_score_topk", label)] = (
             cuda_ms(torch, lambda: sk.combo_score_topk(*args, 64), 50),
             device_ms(torch, lambda: sk.combo_score_topk(*args, 64),
-                      ("gather_v4", "topk_tiles", "topk_merge")),
+                      ("topk_tiles", "gather_v4", "topk_merge"),
+                      lambda: sk.LAUNCHES["combo_score_topk"]),
+            queued_ms(torch, lambda: sk.combo_score_topk(*args, 64)),
             cuda_ms(torch, lambda: sk.combo_score_topk_plain(*args, 64), 10),
             *score_bound_ms(nbytes, N * (P + 2)), f"{N} candidates")
     del F
@@ -914,7 +1266,9 @@ def phase_score_kernels(torch, np, device="cuda"):
     nbytes = Bo * S * 4 + R * S * 4 + SCORE_SP * 8 + 4 * distinct(gathered) + 4 + Bo * R * 4
     timing[("block_score", timed_block)] = (
         cuda_ms(torch, lambda: sk.block_scores(*block_args), 50),
-        device_ms(torch, lambda: sk.block_scores(*block_args), "block_score_kernel"),
+        device_ms(torch, lambda: sk.block_scores(*block_args), "block_score_kernel",
+                  lambda: sk.LAUNCHES["block_score"]),
+        queued_ms(torch, lambda: sk.block_scores(*block_args)),
         cuda_ms(torch, lambda: sk.block_scores_plain(*block_args), 10),
         *score_bound_ms(nbytes, Bo * R * P), f"{Bo * R} candidates")
     del F, block_args
@@ -945,7 +1299,8 @@ def phase_score_kernels(torch, np, device="cuda"):
         timing[("pair_profiles", label)] = (
             cuda_ms(torch, lambda: sk.pair_profiles(M, sz, cmax), 50),
             device_ms(torch, lambda: sk.pair_profiles(M, sz, cmax),
-                      "pair_profiles_kernel"),
+                      "pair_profiles_kernel", lambda: sk.LAUNCHES["pair_profiles"]),
+            queued_ms(torch, lambda: sk.pair_profiles(M, sz, cmax)),
             cuda_ms(torch, lambda: sk.pair_profiles_plain(M, sz, cmax), 10),
             *score_bound_ms(nbytes, ops), f"C={C}")
         if cmax == SCORE_SHAPES["profiles"][-1][1]:
@@ -958,25 +1313,93 @@ def phase_score_kernels(torch, np, device="cuda"):
     del M
 
     records = {}
-    for (name, label), (ms, dev_ms, plain_ms, bound, bound_by, note) in timing.items():
-        on_device = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    for (name, label), (ms, dev_ms, queued, plain_ms, bound, bound_by, note) in timing.items():
+        on_device = "not measured" if dev_ms is None else (
+            f"{dev_ms:.4f} ms ({100 * bound / dev_ms:.1f}% of the bound)")
+        in_queue = "not measured" if queued is None else (
+            f"{queued:.4f} ms ({100 * bound / queued:.1f}% of the bound)")
         print(f"{name} {label} on {CARD}: kernel {ms:.4f} ms a call, {on_device} on the device "
-              f"(profiler), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}; {note}), "
+              f"(profiler), {in_queue} on the device with launches queued (CUDA events), "
+              f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}; {note}), "
               f"{100 * bound / ms:.2f}% of it a call")
+        old = OLD_PAIR.get(label) if name == "pair_score" else None
+        if old:
+            print(f"  {name} {label} with the previous kernel ({OLD_PAIR['from']}): "
+                  f"{old['queued_ms']} ms on the device with launches queued, {old['ms']} ms "
+                  "a call")
         rec = records.setdefault(name, {
             "name": name, "route": "cuda", "source": SCORE_SOURCE,
             "replaces": SCORE_REPLACES[name], "max_abs_err": worst[name], "cases": n_cases[name],
             "library_ms": None})
-        entry = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
-                 "bound_by": bound_by}
+        entry = {"ms": ms, "device_ms": dev_ms, "queued_ms": queued, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": bound_by}
         if "ms" not in rec:  # the first timed shape is the main path's
             rec.update(entry, shape=label)
         else:
             rec[f"at {label}"] = entry
     records["pair_profiles"]["table_matmul_ms"] = matmul_ms
+    for run in range(TOPK_SWEEP_RUNS):
+        cases = topk_sweep(torch, np, device)
+        print(f"top-k sweep {run + 1}/{TOPK_SWEEP_RUNS}: {cases} cases of combo_score_topk and "
+              f"group_argmax == plain (1, 2, 3 and 20+ tiles of {sk.TOPK_TILE}, ragged groups, "
+              "integer ties)")
+    records["combo_score_topk"]["topk_sweep_cases"] = cases * TOPK_SWEEP_RUNS
     library_bounds()
     torch.cuda.empty_cache()
     return records
+
+
+TOPK_SWEEP_SEEDS = 5
+TOPK_SWEEP_RUNS = 3
+# (S, k) of the combo sweep: 23,040 candidates at S = 6 in groups of 1 (k 8,
+# ragged k 7), 2 (k 4) and 3 (k 2) tiles, 5.16M at S = 8 in groups of 20
+# (k 64) and 115 (ragged k 11) tiles
+TOPK_SWEEP_COMBOS = ((6, 8), (6, 7), (6, 4), (6, 2), (8, 64), (8, 11))
+
+
+def topk_sweep(torch, np, device="cuda"):
+    """``combo_score_topk`` and ``group_argmax`` held exactly to the plain
+    ``_group_argmax`` on integer scores (ties within and across tiles):
+    groups of 1, 2, 3 and 20 or more tiles of ``TOPK_TILE``, ragged last
+    groups, ``TOPK_SWEEP_SEEDS`` seeds.  Returns the cases held."""
+    from hic_genome_assembler_tpu_torch.ops import cost, perms
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    dev = torch.device(device)
+    tile = sk.TOPK_TILE
+    combos = {}
+    for S, _k in TOPK_SWEEP_COMBOS:
+        if S not in combos:
+            index = cost._combo_index(perms.order_batch(S).astype(np.int64))
+            combos[S] = (index["n_combo"], torch.from_numpy(np.require(index["cid"], np.int32, "C")
+                                                           ).to(dev),
+                         torch.from_numpy(np.array(perms.orient_batch(S))).to(dev))
+    cases = 0
+    for seed in range(TOPK_SWEEP_SEEDS):
+        rng = np.random.default_rng(seed)
+        c0 = torch.tensor(3.0, device=dev)
+        for S, k in TOPK_SWEEP_COMBOS:
+            n_combo, cid, orients = combos[S]
+            F = torch.from_numpy(rng.integers(0, 2, 9 * 9 * 4 * 65).astype(np.float32)).to(dev)
+            idx4 = torch.from_numpy(rng.integers(0, F.numel(), (n_combo, 4))).to(dev)
+            got = sk.combo_score_topk(F, idx4, cid, orients, c0, k)
+            want = sk.combo_score_topk_plain(F, idx4, cid, orients, c0, k)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"combo_score_topk S={S} k={k} seed {seed} differs from the plain version")
+            cases += 1
+        for tiles in (1, 2, 3, 21):
+            # groups of exactly `tiles` tiles, one short (a ragged last
+            # group), and one over (the last tile holds one candidate)
+            k = 3
+            for N in (k * tiles * tile, k * tiles * tile - 5, k * (tiles * tile + 1)):
+                for top in (4, 2**20):
+                    x = torch.from_numpy(rng.integers(0, top, N).astype(np.float32)).to(dev)
+                    got, want = sk.group_argmax(x, k), sk._group_argmax(x, k)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"group_argmax N={N} k={k} values < {top} seed {seed} differs from "
+                          "the plain version")
+                    cases += 1
+    return cases
 
 
 def library_bounds():
@@ -1101,30 +1524,33 @@ def phase_mesh_kernels(torch, np):
     timing_blocks = None
     for layout in MESH_LAYOUTS:
         d, m = layout
-        # RankCounts' layout: block rows start on 128-byte boundaries
+        # RankCounts' layout: block rows start on 64-byte boundaries
         t = pm.pad_to_multiple(n, 32 * math.lcm(d, m))
         mesh = pm.make_mesh(layout, [dev] * (d * m))
-        blocks = pm.place_blocks(mesh, [full], t, t, fill=-1)
         rb, cb = t // d, t // m
-        for label, params in (("growing K=8", growing), ("fixed K=64", fixed)):
-            for i in range(d):
-                for j in range(m):
-                    got = ck.counts_many(blocks[i][j], params, row0=i * rb, col0=j * cb)
-                    want = ck.counts_many_plain(blocks[i][j], params, row0=i * rb, col0=j * cb)
-                    err = int((got.long() - want.long()).abs().max().item())
-                    max_err = max(max_err, err)
-                    check(err == 0, f"{layout} block ({i}, {j}), {label}: kernel differs from "
-                                    f"plain version (max abs err {err})")
-            summed = ck.counts_many_blocks(blocks, params, dev)[:, :n]
-            whole = ck.counts_many(padded, params)[:, :n]
-            check(torch.equal(summed, whole),
-                  f"{layout} {label}: the blocks' counts do not add up to one launch's")
-            print(f"kernel with offsets == plain on every {d}x{m} block of {rb}x{cb}, "
-                  f"{label}; block sums == one launch on {tuple(padded.shape)}")
-        if layout == (2, 2):
-            timing_blocks = blocks
-        else:
-            del blocks
+        # RankCounts' element type at this size, and int32
+        for dtype in dict.fromkeys([ck.rank_dtype(t), torch.int32]):
+            blocks = pm.place_blocks(mesh, [full], t, t, fill=-1, dtype=dtype)
+            for label, params in (("growing K=8", growing), ("fixed K=64", fixed)):
+                for i in range(d):
+                    for j in range(m):
+                        got = ck.counts_many(blocks[i][j], params, row0=i * rb, col0=j * cb)
+                        want = ck.counts_many_plain(blocks[i][j], params, row0=i * rb,
+                                                    col0=j * cb)
+                        err = int((got.long() - want.long()).abs().max().item())
+                        max_err = max(max_err, err)
+                        check(err == 0, f"{layout} {dtype} block ({i}, {j}), {label}: kernel "
+                                        f"differs from plain version (max abs err {err})")
+                summed = ck.counts_many_blocks(blocks, params, dev)[:, :n]
+                whole = ck.counts_many(padded, params)[:, :n]
+                check(torch.equal(summed, whole),
+                      f"{layout} {dtype} {label}: the blocks' counts do not add up to one launch's")
+                print(f"kernel with offsets == plain on every {d}x{m} {dtype} block of {rb}x{cb}, "
+                      f"{label}; block sums == one launch on {tuple(padded.shape)}")
+            if layout == (2, 2) and dtype == ck.rank_dtype(t):
+                timing_blocks = blocks
+            else:
+                del blocks
     torch.cuda.synchronize()
 
     mesh = pm.make_mesh((2, 2), [dev] * 4)
@@ -1287,10 +1713,14 @@ def main():
     record = phase_kernels(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_dir, hmm_dir, dev_dir = (os.path.join(workdir, d) for d in ("16k", "hmm", "device"))
-        record["launches"], scoring, exact_cuts, paths, resolution = phase_main_path(
+        record["launches"], scoring, exact_cuts, paths, resolution, batches = phase_main_path(
             torch, main_dir)
         phase_part2_cpu(os.path.join(workdir, "cpu"), main_dir, paths, resolution)
         phase_part2_profile(torch, os.path.join(workdir, "profile"), main_dir, paths, resolution)
+        record["main_path_device_ms"] = phase_part1_profile(
+            torch, os.path.join(workdir, "profile1"), paths, resolution, exact_cuts)
+        record["replay"] = phase_replay(torch, np, batches)
+        record["max_abs_err"] = max(record["max_abs_err"], record["replay"]["max_abs_err"])
         hmm_records = phase_hmm_kernels(torch, np)
         score_records = phase_score_kernels(torch, np)
         escalation_launches = phase_escalation(torch, np)

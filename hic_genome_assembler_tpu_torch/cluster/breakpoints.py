@@ -96,9 +96,10 @@ class RankCounts:
     ``mesh`` (a ``parallel.mesh.Mesh``): ``_HOST_N`` is bypassed, as in the
     JAX package, and the matrix is placed as ``(data, model)`` blocks.
     Either way the matrix is square-padded with -1 to a multiple of
-    ``32 * lcm(data, model)`` (every block row starts on a 128-byte
-    boundary), and each tensor piece is copied into its blocks from where
-    it lies, without a trip through the host.  Every scan launches the counts kernel
+    ``32 * lcm(data, model)`` (every block row starts on a 16-byte
+    boundary), stored as ``count_kernels.rank_dtype`` of that size (int16
+    below 32,767, else int32), and each tensor piece is copied into its
+    blocks from where it lies, without a trip through the host.  Every scan launches the counts kernel
     on each block with its offsets; the model-axis partials are summed on
     the row block's first device and the row blocks gathered on the mesh's
     first device before any readback (``count_kernels.counts_many_blocks``).
@@ -136,7 +137,8 @@ class RankCounts:
             p if isinstance(p, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(p))
             for p in pieces
         ]
-        self._blocks = pm.place_blocks(self._mesh, pieces, t, t, fill=-1, dtype=torch.int32)
+        self._blocks = pm.place_blocks(self._mesh, pieces, t, t, fill=-1,
+                                       dtype=count_kernels.rank_dtype(t))
         # "cuda:0" for one block, else the mesh ("mesh 2x2 cuda:0")
         self.where = str(self._blocks[0][0].device) if mesh is None else mesh.describe()
 

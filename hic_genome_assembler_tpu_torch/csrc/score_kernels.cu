@@ -23,7 +23,9 @@
 // the matrix) is NaN.  Every entry point launches on `stream`, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 //
-// Simple first: no TMA, no tensor cores, no vector loads.
+// pair_profiles, combo_score_topk and block_score are the first, simple
+// form: no TMA, no tensor cores, no vector loads.  pair_score is redesigned
+// for the card (its note below).
 
 #include <algorithm>
 #include <cmath>
@@ -414,34 +416,85 @@ block_score_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __re
 // ---------------------------------------------------------------------------
 // pair_score
 //
+// Replaces _pair_score_kernel (hic_genome_assembler_tpu/ops/cost.py:402).
 // Per candidate row of W ids and W orientation flags:
 //   score = sum_{i<j} F[((s_i*Sp + s_j)*4 + 2*o_i + o_j)*(C+1) + offs_j - offs_i] + c0.
 //
 // What bounds it on this card: the scattered table reads, one 4-byte value
-// each out of a table of tens of MB; the reads of a row's pairs land in few
-// table rows, so much of it is served from L2.  The XLA program (and the
-// plain version) materialises the [B, P] index and value tensors, 378 MB of
-// int64 indices at B = 30,720, W = 56.  Here one warp owns one candidate: it
-// compacts the row's real slots (size > 0; a pad slot's F rows are exactly
-// zero, so skipping its pairs leaves the sum unchanged) with their offsets
-// into shared memory (a ballot and a shuffle scan), then its lanes walk the
-// triangle i < j in row-major order, 32 pairs apart, and the warp adds the
-// lanes' sums with a fixed shuffle tree.  The pair (i, j) comes from the
-// walk: no pair index tensors.
+// each out of a table of tens of MB, of which a batch needs the distinct
+// values it gathers (27.8 MB of the 38.6 MB table at B = 30,720, W = 56;
+// it fits the 50 MB L2).  The XLA program (and the plain version)
+// materialises the [B, P] index and value tensors, 378 MB of int64 indices
+// at B = 30,720.  One warp owns one candidate: it compacts the row's real
+// slots (size > 0; a pad slot's F rows are exactly zero, so skipping its
+// pairs leaves the sum unchanged) with their offsets into shared memory (a
+// ballot and a shuffle scan).  The n real slots' triangle i < j is walked
+// by rows, row t folded with row n - 2 - t, so that each of the n / 2
+// folded steps holds n pairs (the middle row alone holds n / 2): item u of
+// the walk is step u / n, position u % n, and a lane's items lie 32 apart,
+// so its (step, position) advances by a constant, with no search.  A lane
+// forms the indices of 8 items, starts their 8 __ldg gathers, then adds the
+// values in item order; the warp adds its lanes' sums with a fixed shuffle
+// tree, so two launches give the same bits.  Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md), the gathers in flight did not make the walk
+// faster: it is bound by the 32-byte sectors its scattered gathers move (a
+// warp-wide gather touches 32 table rows), not by L2's latency.
 // ---------------------------------------------------------------------------
 
-constexpr int kPairWarps = 8;
+constexpr int kPairWarps = 8;   // candidates a block, one warp each
+constexpr int kPairUnroll = 8;  // gathers a lane keeps in flight
 
-__global__ void __launch_bounds__(kPairWarps * 32)
-pair_score_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict__ sizes,
-                  int Sp, const int32_t* __restrict__ cand, int B, int W, int warps,
-                  const float* __restrict__ c0, float* __restrict__ out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps + warp;
-  if (warp >= warps || b >= B) return;  // whole warps leave; only __syncwarp below
-  int32_t* code = reinterpret_cast<int32_t*>(dyn_smem) + 2 * W * warp;  // id*2 + flag
-  int32_t* offs = code + W;
-  const int32_t* ids = cand + static_cast<int64_t>(b) * 2 * W;
+// The sum of this lane's items of the folded walk of the n compacted slots.
+__device__ __forceinline__ float pair_walk(const float* __restrict__ F, int64_t Cp1, int Sp,
+                                           const int32_t* code, const int32_t* offs, int n,
+                                           int lane) {
+  constexpr int team = 32;  // the warp's lanes
+  float acc = 0.0f;
+  if (n < 2) return acc;
+  const int steps = n / 2;
+  const int64_t items = static_cast<int64_t>(steps) * n;
+  const int d_step = team / n, d_pos = team % n;
+  int step = lane / n, pos = lane % n;
+  for (int64_t u0 = lane; u0 < items; u0 += static_cast<int64_t>(kPairUnroll) * team) {
+    float v[kPairUnroll];
+#pragma unroll
+    for (int k = 0; k < kPairUnroll; ++k) {
+      const int first = n - 1 - step;  // pairs of row `step`; the rest belong to row n - 2 - step
+      const bool in_first = pos < first;
+      const int i = in_first ? step : n - 2 - step;
+      const int j = in_first ? step + 1 + pos : i + 1 + (pos - first);
+      // the middle row (step == n - 2 - step) holds only its own pairs
+      const bool valid = u0 + static_cast<int64_t>(k) * team < items &&
+                         (in_first || step != n - 2 - step);
+      v[k] = 0.0f;
+      if (valid) {
+        const int ci = code[i], cj = code[j];
+        const int64_t row = (static_cast<int64_t>(ci >> 1) * Sp + (cj >> 1)) * 4 +
+                            (ci & 1) * 2 + (cj & 1);
+        v[k] = __ldg(F + row * Cp1 + (offs[j] - offs[i]));
+      }
+      pos += d_pos;
+      step += d_step;
+      if (pos >= n) {
+        pos -= n;
+        ++step;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPairUnroll; ++k) acc += v[k];
+  }
+  return acc;
+}
+
+// Compacts one candidate's real slots into code (id*2 + flag) and offs, in
+// one warp; returns the count n in every lane, and sets bad where an id or
+// flag breaks the layout or the offsets overrun the table.
+__device__ __forceinline__ int pair_compact(const int64_t* __restrict__ sizes, int Sp,
+                                            int64_t Cp1, const int32_t* __restrict__ cand,
+                                            int64_t b, int W, int32_t* code, int32_t* offs,
+                                            bool* bad_out) {
+  const int lane = threadIdx.x & 31;
+  const int32_t* ids = cand + b * 2 * W;
   const int32_t* flags = ids + W;
   int n = 0, carry = 0;
   bool bad = false;
@@ -471,28 +524,29 @@ pair_score_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __res
     n += __popc(real);
     carry += __shfl_sync(kFull, incl, 31);
   }
-  bad = __any_sync(kFull, bad) || carry >= Cp1;
+  *bad_out = __any_sync(kFull, bad) || carry >= Cp1;
+  return n;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// One warp a candidate, `warps` candidates a block.
+__global__ void __launch_bounds__(kPairWarps * 32)
+pair_score_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict__ sizes,
+                  int Sp, const int32_t* __restrict__ cand, int B, int W, int warps,
+                  const float* __restrict__ c0, float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * warps + warp;
+  if (warp >= warps || b >= B) return;  // whole warps leave; only __syncwarp below
+  int32_t* code = reinterpret_cast<int32_t*>(dyn_smem) + 2 * W * warp;
+  int32_t* offs = code + W;
+  bool bad;
+  const int n = pair_compact(sizes, Sp, Cp1, cand, b, W, code, offs, &bad);
   __syncwarp();
-  float acc = 0.0f;
-  if (!bad) {
-    int i = 0, j = 1 + lane;
-    while (i < n - 1 && j >= n) {  // row i holds j in [i + 1, n)
-      j += i + 2 - n;
-      ++i;
-    }
-    while (i < n - 1) {
-      const int ci = code[i], cj = code[j];
-      const int64_t row = (static_cast<int64_t>(ci >> 1) * Sp + (cj >> 1)) * 4 +
-                          (ci & 1) * 2 + (cj & 1);
-      acc += F[row * Cp1 + (offs[j] - offs[i])];
-      j += 32;
-      while (i < n - 1 && j >= n) {
-        j += i + 2 - n;
-        ++i;
-      }
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+  const float acc = warp_sum(bad ? 0.0f : pair_walk(F, Cp1, Sp, code, offs, n, lane));
   if (lane == 0) out[b] = bad ? NAN : acc + *c0;
 }
 
@@ -570,12 +624,12 @@ extern "C" int pair_score(const float* F, int64_t Cp1, const int64_t* sizes, int
                           cudaStream_t stream) {
   if (B < 1 || W < 1 || Sp < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t per_warp = sizeof(int32_t) * 2 * W;
+  if (per_warp > static_cast<size_t>(kSmemDefault)) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = static_cast<int>(
       std::min<size_t>(kPairWarps, std::max<size_t>(1, kSmemDefault / per_warp)));
-  const size_t smem = per_warp * warps;
-  if (smem > static_cast<size_t>(kSmemDefault)) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + warps - 1) / warps;
-  pair_score_kernel<<<blocks, kPairWarps * 32, smem, stream>>>(F, Cp1, sizes, Sp, cand, B, W,
-                                                               warps, c0, out);
+  pair_score_kernel<<<blocks, kPairWarps * 32, per_warp * warps, stream>>>(F, Cp1, sizes, Sp,
+                                                                           cand, B, W, warps, c0,
+                                                                           out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -102,8 +102,10 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # pointer and the cudaStream_t (last) as c_void_p, else ctypes would pass a
 # 32-bit int and cut it.  Every entry point returns its cudaError_t as int.
 SIGNATURES = {
-    # R, row stride, n_rows, n_cols, row0, col0, params [K, 3], K, out [K, n_rows]
-    "rank_counts": [_PTR, _I64, _INT, _INT, _INT, _INT, _PTR, _INT, _PTR, _PTR],
+    # R, element bytes, row stride, n_rows, n_cols, row0, col0, plan, n_chunks,
+    # max_bins, max_groups, out [K, n_rows]
+    "rank_counts": [_PTR, _INT, _I64, _INT, _INT, _INT, _INT, _PTR, _INT, _INT, _INT, _PTR,
+                    _PTR],
     # log_b [T, 2], log_start [2], log_trans [2, 2], T, scratch [2, T, 2],
     # gamma [T, 2], xi_sum [2, 2], logprob [1]
     "hmm_forward_backward": [_PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR],

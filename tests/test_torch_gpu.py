@@ -567,3 +567,124 @@ def test_forced_escalation_on_cuda_equals_cpu(cuda):
         if dev.type == "cuda":
             assert sk.LAUNCHES["block_score"] > before
     assert decisions["cuda"] == decisions["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the combo top-k over tile counts, ragged groups and ties; the redesigned
+# rank-count and pair-score kernels in both of their forms
+# ---------------------------------------------------------------------------
+
+
+# (S, k): 23,040 candidates at S = 6 in groups of 1 (k 8, ragged k 7), 2 (k 4)
+# and 3 (k 2) tiles of TOPK_TILE; 5.16M at S = 8 in groups of 20 (k 64) and
+# 115 (ragged k 11) tiles
+_SWEEP_COMBOS = [(6, 8), (6, 7), (6, 4), (6, 2), (8, 64), (8, 11)]
+# group_argmax over k = 3 groups of `tiles` tiles: exact, one short (ragged
+# last group), one over (a last tile of one candidate)
+_SWEEP_GROUPS = [(tiles, shape) for tiles in (1, 2, 3, 21) for shape in ("exact", "short", "over")]
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("case", [("combo", c) for c in _SWEEP_COMBOS]
+                         + [("group", g) for g in _SWEEP_GROUPS], ids=str)
+def test_topk_sweep_matches_plain_exactly(cuda, case, seed):
+    """Integer scores tie within and across tiles: values, argmaxes (the
+    lowest index) and second maxima equal ``_group_argmax`` bit for bit."""
+    rng = np.random.default_rng(seed)
+    kind, shape = case
+    if kind == "combo":
+        S, k = shape
+        combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+        F = torch.from_numpy(rng.integers(0, 2, 9 * 9 * 4 * 65).astype(np.float32)).to(cuda)
+        args = [F, torch.from_numpy(rng.integers(0, F.numel(), (combo["n_combo"], 4))).to(cuda),
+                torch.from_numpy(np.ascontiguousarray(combo["cid"], dtype=np.int32)).to(cuda),
+                torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda),
+                torch.tensor(3.0, device=cuda)]
+        got, want = sk.combo_score_topk(*args, k), sk.combo_score_topk_plain(*args, k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
+    tiles, form = shape
+    k, tile = 3, sk.TOPK_TILE
+    N = {"exact": k * tiles * tile, "short": k * tiles * tile - 5,
+         "over": k * (tiles * tile + 1)}[form]
+    for top in (4, 2**20):
+        x = torch.from_numpy(rng.integers(0, top, N).astype(np.float32)).to(cuda)
+        assert all(torch.equal(a, b) for a, b in zip(sk.group_argmax(x, k), sk._group_argmax(x, k)))
+
+
+def _count_batch(rng, n, K):
+    """K scans over n rows: growing and fixed, a few starts shared by many
+    fixed scans, and (K > 4) the pow2 padding's repeated last row."""
+    starts = rng.integers(0, n, max(1, K // 16))
+    rows = []
+    for _ in range(K - K // 4 if K > 4 else K):
+        s = int(rng.choice(starts))
+        rows.append((s, 0, 1) if rng.random() < 0.3 else (s, s + int(rng.integers(-5, 2500)), 0))
+    params = bp._pow2_params(rows)
+    assert len(params) == K
+    return params
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("K", [1, 8, 512, 2048])
+def test_rank_counts_kernel_batches_match_plain(cuda, dtype, K):
+    """Both element types at K = 1 to 2,048 (over one chunk of
+    CHUNK_SCANS), on the padded matrix (phantom pad rows included), a
+    column view, an unaligned view (scalar loads) and a block with its
+    offsets."""
+    n = 3000
+    rng = np.random.default_rng(K)
+    padded = ck.pad_rank(torch.from_numpy(_rank(n, 2)).to(cuda)).to(dtype)
+    params = _count_batch(rng, n, K)
+    if K == 2048:
+        assert ck.plan_batch(params)[1] > 1
+    before = ck.LAUNCHES
+    views = ((padded, 0, 0), (padded[:, :2048], 0, 0), (padded[:, 3:2000], 0, 3),
+             (padded[1024:2048, 512:2560], 1024, 512))
+    for mat, row0, col0 in views:
+        got = ck.counts_many(mat, params, row0=row0, col0=col0)
+        assert torch.equal(got, ck.counts_many_plain(mat, params, row0=row0, col0=col0)), \
+            (tuple(mat.shape), row0, col0)
+    assert ck.LAUNCHES == before + len(views)
+
+
+def _pair_candidates(rng, B, shape, Sp=56, W=56):
+    """``B`` rows of 55 real ids and a pad: random, or (``window``) the
+    first B rows of a sliding-window batch of 16 positions x 1,920."""
+    ids = np.full((B, W), Sp - 1, dtype=np.int32)
+    flags = rng.integers(0, 2, (B, W)).astype(np.int32)
+    if shape == "random":
+        for b in range(B):
+            ids[b, :55] = rng.permutation(Sp - 1)[:55]
+        return np.concatenate([ids, flags], axis=1)
+    orders_w, orients_w = perms.order_batch(5), perms.orient_batch(5)
+    B_w = len(orders_w) * len(orients_w)
+    idx_w = np.repeat(np.asarray(orders_w, dtype=np.int64), len(orients_w), axis=0)
+    orient_blk = np.tile(np.asarray(orients_w, dtype=np.int32), (len(orders_w), 1))
+    base_o, base_f = ids[0].copy(), flags[0].copy()
+    base_o[:55] = rng.permutation(Sp - 1)[:55]
+    full_o, full_f = np.tile(base_o, (16 * B_w, 1)), np.tile(base_f, (16 * B_w, 1))
+    for k in range(16):
+        blk = slice(k * B_w, (k + 1) * B_w)
+        full_o[blk, k:k + 5] = base_o[k + idx_w]
+        full_f[blk, k:k + 5] = orient_blk
+    return np.concatenate([full_o[:B], full_f[:B]], axis=1)
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("shape", ["random", "window"])
+@pytest.mark.parametrize("B", [1, 112, 509, 30720])
+def test_pair_scores_batches_match_plain(cuda, B, shape, kind):
+    """B = 1 to 30,720, random and sliding-window rows: integer inputs
+    exact, floats within ``sum_bound``, two launches bit-identical."""
+    rng = np.random.default_rng(B)
+    Sp, Cp1, W = 56, 769, 56
+    sizes = np.zeros(Sp, dtype=np.int64)
+    sizes[: Sp - 1] = rng.integers(1, 14, Sp - 1)
+    cand = _pair_candidates(rng, B, shape)
+    args = (_score_table(rng, Sp, Cp1, kind, sizes).to(cuda), torch.from_numpy(sizes).to(cuda),
+            torch.from_numpy(cand).to(cuda), _scalar(rng, kind).to(cuda))
+    got, again = sk.pair_scores(*args), sk.pair_scores(*args)
+    assert torch.equal(got, again)
+    exact = sk.pair_scores_plain(args[0].double(), args[1], args[2], args[3].double())
+    _close_or_equal(got, sk.pair_scores_plain(*args), kind, W * (W - 1) // 2 + 1, exact)
