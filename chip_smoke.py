@@ -27,8 +27,10 @@ passes or fails the run:
    no block scores), call no plain scoring version on the card and report
    0 precision violations.  Every rank-count launch's batch is recorded
    (K, growing or fixed, the prefix elements a scan and the union; the
-   batches in build/chip_smoke_rank_batches.json) and every pair-score
-   launch's (B, W, real ids a row), and printed.
+   batches in build/chip_smoke_rank_batches.json), every pair-score
+   launch's (B, W, real ids a row), and every profile build's and combo
+   launch's inputs (copies on the card: ``score_input_recorder``), and
+   summarized.
    Then -part2 with -device cpu (the plain versions) on the same part-1
    files: its chromosomeOrdering.txt and plotOrder.txt must be byte-equal
    to the card's.  Last, -part2 on the card again under torch.profiler:
@@ -70,7 +72,13 @@ passes or fails the run:
    from another run) are printed beside them, and stay out of the kernels'
    JSON record.  The
    top-k sweep (``topk_sweep``: 1, 2, 3 and 20+ tiles, ragged groups,
-   integer ties, 5 seeds) runs three times.  Then
+   integer ties, 5 seeds) runs three times.  The profile and combo
+   kernels' previous times at these shapes (``OLD_PROFILES``,
+   ``OLD_COMBO``, another run) are printed beside this run's and stay out of
+   the JSON record.  Then phase 4's profile builds and combo launches are
+   replayed on their own inputs (``phase_score_replay``): each held to its
+   plain version, two launches bit-identical, and each set's device time
+   (``queued_ms``) printed beside its summed bound.  Then
    part 2's brute force with a forced escalation, on the card and on the
    CPU: the same decision, and the block kernel launched;
 6. HMM path: the CLI (-part1 -part2 -part3 -part4, device cuda, hmm = True)
@@ -193,6 +201,13 @@ OLD_PAIR = {"from": _OLD_FROM,
             "window B=30720": {"ms": 0.4123, "queued_ms": 0.4115},
             "window-shaped B=30720": {"ms": 0.1116, "queued_ms": 0.1111},
             "greedy B=112": {"ms": 0.0251, "queued_ms": 0.0068}}
+# The profile and combo kernels of commit a210703 at phase 5b's shapes: this
+# script's phase 5b in another run (queued device times, NVIDIA H100 80GB
+# HBM3, 700.00 W); printed beside this run's and never put in its JSON record.
+_OLD_FROM_A210703 = "commit a210703's kernels, another run, NVIDIA H100 80GB HBM3, 700.00 W"
+OLD_PROFILES = {"from": _OLD_FROM_A210703, "cmax=384": 0.0531, "cmax=128": 0.0201}
+OLD_COMBO = {"from": _OLD_FROM_A210703, "S=6 360x64": 0.0111, "S=8 20160x256": 0.2489}
+REPLAY_ITERS = 5                   # queued launches a replayed profile build or combo launch
 # the scoring phase's shapes: pair-score batches (label, B, real ids a row,
 # rows random, shaped as the sliding window's, or with pads scattered
 # inside), combo batches (S, Sp, C + 1 of the table),
@@ -571,7 +586,7 @@ def phase_main_path(torch, workdir):
     argv = ["-part1", "-part2", "-part3", "-part4", "-config", config, "-device", "cuda",
             "-mesh", "off"]
     with plain_scorers_on_cuda() as plain_calls, pair_recorder() as pair_record, \
-            rank_recorder() as rank_record:
+            rank_recorder() as rank_record, score_input_recorder() as score_record:
         reset_launches()
         t0 = time.time()
         with open(LOG, "w") as log, contextlib.redirect_stdout(log):
@@ -581,6 +596,7 @@ def phase_main_path(torch, workdir):
     truth = e2e.truth_checks(genome, os.path.join(workdir, "files"))
     summarize_rank_launches(rank_record)
     summarize_pair_launches(pair_record)
+    summarize_score_inputs(score_record)
     with open(BATCHES_LOG, "w") as handle:
         json.dump([dict(rec, params=rec["params"].tolist()) for rec in rank_record], handle)
     precision = precision_line(LOG)
@@ -608,7 +624,11 @@ def phase_main_path(torch, workdir):
           "assembled FASTA entries or their lengths are wrong")
     check(len(rank_record) == launches, f"{len(rank_record)} recorded rank-count batches for "
                                         f"{launches} launches")
-    return launches, scoring, report.cut_indices, paths, genome.resolution, rank_record
+    check(len(score_record["pair_profiles"]) == scoring["pair_profiles"]
+          and len(score_record["combo_score_topk"]) == scoring["combo_score_topk"],
+          "the recorded profile and combo calls are not the launches counted")
+    return (launches, scoring, report.cut_indices, paths, genome.resolution, rank_record,
+            score_record)
 
 
 @contextlib.contextmanager
@@ -657,6 +677,48 @@ def pair_recorder():
         yield calls
     finally:
         sk.pair_scores = original
+
+
+@contextlib.contextmanager
+def score_input_recorder():
+    """Records the inputs of every ``pair_profiles`` and ``combo_score_topk``
+    call on a CUDA tensor while the block runs, as copies on the card:
+    {"pair_profiles": [(sub, sizes, cmax)], "combo_score_topk": [(F_flat,
+    idx4, cid, orients, c0, k)]}."""
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    calls = {"pair_profiles": [], "combo_score_topk": []}
+    originals = {name: getattr(sk, name) for name in calls}
+
+    def recording(name):
+        def wrapper(*args):
+            if args[0].device.type == "cuda":
+                calls[name].append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+            return originals[name](*args)
+        return wrapper
+
+    for name in calls:
+        setattr(sk, name, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(sk, name, fn)
+
+
+def summarize_score_inputs(record):
+    """Prints phase 4's profile builds (Sp, C, largest scaffold, cmax) and
+    combo launches (S, orders x orientations, combos, k) as histograms."""
+    for name, key in (("pair_profiles", lambda a: (a[1].shape[0], a[0].shape[0],
+                                                    int(a[1].max()), a[2])),
+                      ("combo_score_topk", lambda a: (a[3].shape[1], f"{a[2].shape[0]}x"
+                                                       f"{a[3].shape[0]}", a[1].shape[0], a[5]))):
+        hist = {}
+        for args in record[name]:
+            hist[key(args)] = hist.get(key(args), 0) + 1
+        label = "(Sp, C, largest, cmax)" if name == "pair_profiles" else "(S, Bo x R, n_combo, k)"
+        print(f"main path {name}: {len(record[name])} launches; {label}: launches "
+              + ", ".join(f"{k}: {v}" for k, v in sorted(hist.items(), key=lambda kv: str(kv[0]))))
 
 
 def summarize_rank_launches(record):
@@ -1228,7 +1290,7 @@ def phase_score_kernels(torch, np, device="cuda"):
         timing[("combo_score_topk", label)] = (
             cuda_ms(torch, lambda: sk.combo_score_topk(*args, 64), 50),
             device_ms(torch, lambda: sk.combo_score_topk(*args, 64),
-                      ("topk_tiles", "gather_v4", "topk_merge"),
+                      ("combo_kernel", "topk_merge"),
                       lambda: sk.LAUNCHES["combo_score_topk"]),
             queued_ms(torch, lambda: sk.combo_score_topk(*args, 64)),
             cuda_ms(torch, lambda: sk.combo_score_topk_plain(*args, 64), 10),
@@ -1327,6 +1389,10 @@ def phase_score_kernels(torch, np, device="cuda"):
             print(f"  {name} {label} with the previous kernel ({OLD_PAIR['from']}): "
                   f"{old['queued_ms']} ms on the device with launches queued, {old['ms']} ms "
                   "a call")
+        old = {"pair_profiles": OLD_PROFILES, "combo_score_topk": OLD_COMBO}.get(name, {})
+        if label in old:
+            print(f"  {name} {label} with the previous kernel ({old['from']}): {old[label]} ms "
+                  "on the device with launches queued")
         rec = records.setdefault(name, {
             "name": name, "route": "cuda", "source": SCORE_SOURCE,
             "replaces": SCORE_REPLACES[name], "max_abs_err": worst[name], "cases": n_cases[name],
@@ -1400,6 +1466,97 @@ def topk_sweep(torch, np, device="cuda"):
                           "the plain version")
                     cases += 1
     return cases
+
+
+def topk_error(torch, sk, label, got, want, exact, n_terms):
+    """Holds a top-k triple to its plain version's: values and second maxima
+    within ``sum_bound`` of each group's largest exact score, the argmax equal
+    where the group's top two differ by more than twice the bound; returns
+    the largest difference."""
+    vals, idx, second = got
+    wvals, widx, wsecond = want
+    k = vals.shape[0]
+    flat = exact.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.shape[0]) % k)]).reshape(k, -1)
+    bound = torch.from_numpy(sk.sum_bound(n_terms, flat.max(dim=1).values.cpu().numpy())
+                             ).to(vals.device)
+    dv, ds = (torch.where(x == y, 0.0, (x.double() - y.double()).abs())
+              for x, y in ((vals, wvals), (second, wsecond)))
+    err = float(torch.maximum(dv, ds).max())
+    check(bool((dv <= bound).all() and (ds <= bound).all()),
+          f"{label}: top-k values beyond the bound (max {err:.3g})")
+    clear = (wvals.double() - wsecond.double()) > 2 * bound
+    check(torch.equal(idx[clear], widx[clear]), f"{label}: an argmax differs where the top two "
+                                                "are apart")
+    return err
+
+
+def phase_score_replay(torch, np, record):
+    """5b: phase 4's profile builds and combo launches replayed on their own
+    inputs (recorded by ``score_input_recorder``): each held to its plain
+    version (profiles within ``sum_bound``; the top-k as ``topk_error``
+    says; two launches bit-identical), then timed on the device
+    (``queued_ms``) beside its bound.  Prints and returns each set's totals:
+    {name: {"launches", "max_abs_err", "device_ms", "bound_ms", "bound_by"}}."""
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    out = {}
+    for name, calls in record.items():
+        worst, times, bounds = 0.0, [], []
+        for i, args in enumerate(calls):
+            if name == "pair_profiles":
+                sub, sizes, cmax = args
+                fn = lambda: sk.pair_profiles(sub, sizes, cmax)  # noqa: E731
+                got, again, want = fn(), fn(), sk.pair_profiles_plain(sub, sizes, cmax)
+                exact = sk.pair_profiles_plain(sub.double(), sizes, cmax)
+                bound = torch.from_numpy(sk.sum_bound(cmax, exact.abs().cpu().numpy())
+                                         ).to(sub.device)
+                diff = (got.double() - want.double()).abs()
+                check(bool((diff <= bound).all()),
+                      f"replayed pair_profiles {i}: beyond sum_bound (max {float(diff.max()):.3g})")
+                err = float(diff.max())
+                sz = sizes.cpu().numpy()
+                C, Sp, L = sub.shape[0], sz.shape[0], 2 * cmax - 1
+                off_diagonal = C * C - int((sz ** 2).sum())
+                bounds.append(score_bound_ms(off_diagonal * 4 + Sp * 8 + 16 * Sp * Sp * L,
+                                             2 * off_diagonal))
+            else:
+                F, idx4, cid, orients, c0, k = args
+                fn = lambda: sk.combo_score_topk(F, idx4, cid, orients, c0, k)  # noqa: E731
+                got, again = fn(), fn()
+                want = sk.combo_score_topk_plain(F, idx4, cid, orients, c0, k)
+                S = orients.shape[1]
+                P = S * (S - 1) // 2
+                exact = sk.combo_scores_plain(F.double(), idx4, cid, orients, c0.double())
+                err = topk_error(torch, sk, f"replayed combo_score_topk {i}", got, want, exact,
+                                 P + 1)
+                N = cid.shape[0] * orients.shape[0]
+                nbytes = idx4.numel() * 8 + 4 * int(torch.unique(idx4).numel()) \
+                    + cid.numel() * 4 + orients.numel() * 4 + 4 + k * 16
+                bounds.append(score_bound_ms(nbytes, N * (P + 2)))
+            torch.cuda.synchronize()
+            pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"replayed {name} {i}: two launches differ")
+            worst = max(worst, err)
+            times.append(queued_ms(torch, fn, REPLAY_ITERS))
+        bound_ms = sum(b[0] for b in bounds)
+        by = "/".join(sorted({b[1] for b in bounds}))
+        total = None if None in times else sum(times)
+        shown = "not measured" if total is None else (
+            f"{total:.4f} ms on the device (CUDA events, launches queued, mean of "
+            f"{REPLAY_ITERS} a launch), {100 * bound_ms / total:.1f}% of the bound")
+        print(f"replay {name} on {CARD}: phase 4's {len(calls)} launches == plain (max abs err "
+              f"{worst:.3g}), two launches bit-identical; {shown}; summed bound {bound_ms:.6f} ms "
+              f"({by}); largest launch {max(times) if total is not None else None} ms")
+        out[name] = {"launches": len(calls), "max_abs_err": worst, "device_ms": total,
+                     "bound_ms": bound_ms, "bound_by": by}
+    old = {"pair_profiles": OLD_PROFILES, "combo_score_topk": OLD_COMBO}
+    for name, figures in old.items():
+        print(f"{name} with the previous kernel ({figures['from']}): " + ", ".join(
+            f"{label} {ms} ms on the device" for label, ms in figures.items() if label != "from"))
+    torch.cuda.empty_cache()
+    return out
 
 
 def library_bounds():
@@ -1713,8 +1870,8 @@ def main():
     record = phase_kernels(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_dir, hmm_dir, dev_dir = (os.path.join(workdir, d) for d in ("16k", "hmm", "device"))
-        record["launches"], scoring, exact_cuts, paths, resolution, batches = phase_main_path(
-            torch, main_dir)
+        (record["launches"], scoring, exact_cuts, paths, resolution, batches,
+         score_inputs) = phase_main_path(torch, main_dir)
         phase_part2_cpu(os.path.join(workdir, "cpu"), main_dir, paths, resolution)
         phase_part2_profile(torch, os.path.join(workdir, "profile"), main_dir, paths, resolution)
         record["main_path_device_ms"] = phase_part1_profile(
@@ -1723,6 +1880,9 @@ def main():
         record["max_abs_err"] = max(record["max_abs_err"], record["replay"]["max_abs_err"])
         hmm_records = phase_hmm_kernels(torch, np)
         score_records = phase_score_kernels(torch, np)
+        for name, replay in phase_score_replay(torch, np, score_inputs).items():
+            score_records[name]["replay"] = replay
+        del score_inputs
         escalation_launches = phase_escalation(torch, np)
         hmm_launches = phase_hmm_path(torch, hmm_dir)
         # the rank-count record keeps phase 4's count; phase 7 checks its own

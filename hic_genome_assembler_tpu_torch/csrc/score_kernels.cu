@@ -23,9 +23,9 @@
 // the matrix) is NaN.  Every entry point launches on `stream`, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 //
-// pair_profiles, combo_score_topk and block_score are the first, simple
-// form: no TMA, no tensor cores, no vector loads.  pair_score is redesigned
-// for the card (its note below).
+// block_score is the first, simple form: no TMA, no tensor cores, no vector
+// loads.  pair_profiles, combo_score_topk and pair_score are redesigned for
+// the card (their notes below).
 
 #include <algorithm>
 #include <cmath>
@@ -41,9 +41,12 @@ constexpr int kThreads = 256;
 constexpr int kSmemDefault = 48 * 1024;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
+// Dynamic shared memory past the default 48 KB, less what a kernel's static
+// arrays take (at most 4 KB here), needs the opt-in.
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kSmemDefault)) return cudaSuccess;
+  if (bytes <= static_cast<size_t>(kSmemDefault - 4096)) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
@@ -68,72 +71,188 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 // at Sp = 56, cmax = 384), is written once and outweighs the C x C matrix
 // read once; the adds, two per matrix element, take far less at the f32 rate.
 // The XLA program materialises a padded [k, Sp, cmax, cmax] block view G (up
-// to 256 MB a chunk), skews it twice and gathers the four rows from it.  Here
-// one block owns one (s, t) pair: it stages rows of its matrix block into
-// shared memory with coalesced loads (each element read once from device
-// memory), each thread owns a set of diagonals and sums them over the staged
-// rows in order of a, keeping both sums in shared memory, and the block then
-// writes its four rows in full.  No transient and no chunk budget: one launch
-// a chromosome.
+// to 256 MB a chunk), skews it twice and gathers the four rows from it.
+//
+// The design.  A block of 512 threads owns up to `pairs` pairs of one wrapped
+// diagonal, (s, (s + k) mod Sp) for s in [s0, s0 + pairs) (at most 8, as
+// many as 48 KB of sums hold: 8 at cmax 384, 4 at cmax 704): grid (chunks
+// of s, k).  A block so holds at most one pair of any row s and one of any
+// column t, and the pairs of a chromosome's largest scaffold, the most work,
+// spread over 2 Sp - 1 blocks instead of crowding a few.
+//  1. Offsets: one block-wide scan of the sizes (int64, warp shuffles), up
+//     to the largest id that the block's pairs name; the thread of each such
+//     id keeps its exclusive prefix.  No thread sums a prefix alone.
+//  2. Sums: the diagonals of the block's pairs (nd = c_s + c_t - 1 each; none
+//     for a zero or NaN pair) form one list, and thread j takes items j,
+//     j + 512, ...: item d of a pair is its anti-diagonal u = d and its
+//     diagonal d, each summed by that thread alone over rows a in ascending
+//     order into the pair's slot of shared memory.  A warp's 32 consecutive
+//     items walk the rows together, so the lanes of one pair read
+//     neighbouring columns of one row (coalesced), each adding only the rows
+//     of its own line.  A large pair's diagonals spread over all 512 threads,
+//     and small pairs share a block.  Each sum is one thread's, in a fixed
+//     order: no atomics and no fold.
+//  3. Stores: each pair's 4L floats (16-byte aligned: 4L*4 bytes is a
+//     multiple of 16) as L float4 stores, thread v storing floats 4v..4v+3 of
+//     the block's pairs in turn, each float's (e, m) found by compares, with
+//     no division.  The zeros outside a pair's diagonals and the rows of
+//     s = t, pad slots and NaN pairs are written in the same pass.
+// Shared memory holds 2L floats a pair (its sums) and nothing a row.  One
+// launch a chromosome.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kProfileThreads = 512;
+constexpr int kProfileMaxPairs = 8;
+
+enum ProfileState { kSums = 0, kZero = 1, kNan = 2 };
+
+struct ProfilePair {
+  int64_t offs_s, offs_t;
+  int64_t raw_s, raw_t;  // the sizes as read, before the layout check
+  int s, t, cs, ct, nd, item0, state;
+};
+
+__global__ void __launch_bounds__(kProfileThreads)
 pair_profiles_kernel(const float* __restrict__ M, int C, const int64_t* __restrict__ sizes,
-                     int Sp, int cmax, int rows_per_tile, float* __restrict__ h) {
-  const int L = 2 * cmax - 1;
-  const int s = blockIdx.y, t = blockIdx.x;
-  int64_t offs_s = 0, offs_t = 0;  // Sp is small: every thread sums the prefix
-  for (int q = 0; q < s; ++q) offs_s += sizes[q];
-  for (int q = 0; q < t; ++q) offs_t += sizes[q];
-  const int64_t cs64 = sizes[s], ct64 = sizes[t];
-  float* out = h + (static_cast<int64_t>(s) * Sp + t) * 4 * L;
-  const bool bad = cs64 < 0 || ct64 < 0 || cs64 > cmax || ct64 > cmax ||
-                   offs_s + cs64 > C || offs_t + ct64 > C;
-  if (bad || s == t || cs64 == 0 || ct64 == 0) {
-    const float fill = bad ? NAN : 0.0f;
-    for (int q = threadIdx.x; q < 4 * L; q += blockDim.x) out[q] = fill;
-    return;
+                     int Sp, int cmax, int pairs_per_block, float* __restrict__ h) {
+  __shared__ ProfilePair pairs[kProfileMaxPairs];
+  __shared__ int64_t warp_total[kProfileThreads / 32];
+  __shared__ int n_items;
+  float* sums = reinterpret_cast<float*>(dyn_smem);  // [pairs][Dsum: L | Ddiff: L]
+  const int L = 2 * cmax - 1, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * pairs_per_block, k = blockIdx.y;
+  const int P = min(pairs_per_block, Sp - s0);
+  if (tid < P) {
+    ProfilePair& p = pairs[tid];
+    p.s = s0 + tid;
+    p.t = (p.s + k) % Sp;
+    p.raw_s = sizes[p.s];
+    p.raw_t = sizes[p.t];
   }
-  const int cs = static_cast<int>(cs64), ct = static_cast<int>(ct64);
-  const int nd = cs + ct - 1;  // diagonals (and anti-diagonals) of the block
-  float* acc_sum = reinterpret_cast<float*>(dyn_smem);  // [L]  Dsum[u]
-  float* acc_diff = acc_sum + L;                        // [L]  Ddiff[d]
-  float* tile = acc_diff + L;                           // [rows_per_tile][ct]
-  for (int d = threadIdx.x; d < nd; d += blockDim.x) acc_sum[d] = acc_diff[d] = 0.0f;
-  const float* block = M + offs_s * C + offs_t;
-  for (int a0 = 0; a0 < cs; a0 += rows_per_tile) {
-    const int rows = min(rows_per_tile, cs - a0);
-    __syncthreads();  // the previous tile has been read
-    for (int q = threadIdx.x; q < rows * ct; q += blockDim.x) {
-      const int r = q / ct;
-      tile[q] = block[static_cast<int64_t>(a0 + r) * C + (q - r * ct)];
+  __syncthreads();
+
+  // 1. the exclusive prefix of the sizes at every id the block's pairs name
+  int last = 0;
+  for (int i = 0; i < P; ++i) last = max(last, max(pairs[i].s, pairs[i].t));
+  int64_t carry = 0;
+  for (int base = 0; base <= last; base += kProfileThreads) {
+    const int j = base + tid;
+    const int64_t v = j <= last ? sizes[j] : 0;
+    int64_t incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int64_t u = __shfl_up_sync(kFull, static_cast<long long>(incl), o);
+      if (lane >= o) incl += u;
     }
+    if (lane == 31) warp_total[warp] = incl;
     __syncthreads();
-    for (int d = threadIdx.x; d < nd; d += blockDim.x) {
-      // anti-diagonal u = d: b = d - a0 - r in [0, ct)
-      float su = 0.0f;
-      for (int r = max(0, d - a0 - ct + 1), hi = min(rows - 1, d - a0); r <= hi; ++r)
-        su += tile[r * ct + (d - a0 - r)];
-      // diagonal d: b = (d - cs + 1 + a0) + r in [0, ct)
-      const int off = d - cs + 1 + a0;
-      float di = 0.0f;
-      for (int r = max(0, -off), hi = min(rows - 1, ct - 1 - off); r <= hi; ++r)
-        di += tile[r * ct + off + r];
-      acc_sum[d] += su;  // thread d alone owns entry d
-      acc_diff[d] += di;
+    int64_t before = carry;
+    for (int w = 0; w < kProfileThreads / 32; ++w) {
+      if (w < warp) before += warp_total[w];
+      carry += warp_total[w];
+    }
+    if (j <= last) {
+      const int64_t excl = before + incl - v;
+      for (int i = 0; i < P; ++i) {  // one thread owns id j
+        if (pairs[i].s == j) pairs[i].offs_s = excl;
+        if (pairs[i].t == j) pairs[i].offs_t = excl;
+      }
+    }
+    __syncthreads();  // warp_total is rewritten by the next chunk
+  }
+
+  // each pair's state and diagonals, and its first item (a scan in warp 0)
+  if (warp == 0) {
+    int nd = 0;
+    if (lane < P) {
+      ProfilePair& p = pairs[lane];
+      const int64_t cs = p.raw_s, ct = p.raw_t;
+      const bool bad = cs < 0 || ct < 0 || cs > cmax || ct > cmax || p.offs_s + cs > C ||
+                       p.offs_t + ct > C;
+      p.state = bad ? kNan : (p.s == p.t || cs == 0 || ct == 0) ? kZero : kSums;
+      p.cs = p.state == kSums ? static_cast<int>(cs) : 0;
+      p.ct = p.state == kSums ? static_cast<int>(ct) : 0;
+      nd = p.state == kSums ? p.cs + p.ct - 1 : 0;
+      p.nd = nd;
+    }
+    int incl = nd;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane < P) pairs[lane].item0 = incl - nd;
+    if (lane == 31) n_items = incl;
+  }
+  __syncthreads();
+
+  // 2. the sums: item it = tid + 512 j; the warp's lanes walk rows A0..A1
+  // together, each adding the rows of its own line
+  int i = 0;
+  for (int base = warp * 32; base < n_items; base += kProfileThreads) {
+    const int it = base + lane;
+    const bool live = it < n_items;
+    int d = 0, cs = 1, ct = 1;
+    const float* blk = M;
+    if (live) {
+      while (it >= pairs[i].item0 + pairs[i].nd) ++i;
+      const ProfilePair& p = pairs[i];
+      d = it - p.item0;
+      cs = p.cs;
+      ct = p.ct;
+      blk = M + p.offs_s * C + p.offs_t;
+    }
+    float su = 0.0f;  // anti-diagonal u = d: b = d - a
+    {
+      const int a0 = live ? max(0, d - ct + 1) : INT32_MAX, a1 = live ? min(cs - 1, d) : -1;
+      const int A0 = __reduce_min_sync(kFull, a0), A1 = __reduce_max_sync(kFull, a1);
+      const float* x = blk + static_cast<int64_t>(A0) * C + (d - A0);
+#pragma unroll 4
+      for (int a = A0; a <= A1; ++a, x += C - 1)
+        if (a >= a0 && a <= a1) su += __ldg(x);
+    }
+    float sd = 0.0f;  // diagonal d: b = a + d - cs + 1
+    {
+      const int off = d - cs + 1;
+      const int a0 = live ? max(0, -off) : INT32_MAX;
+      const int a1 = live ? min(cs - 1, ct - 1 - off) : -1;
+      const int A0 = __reduce_min_sync(kFull, a0), A1 = __reduce_max_sync(kFull, a1);
+      const float* x = blk + static_cast<int64_t>(A0) * C + (A0 + off);
+#pragma unroll 4
+      for (int a = A0; a <= A1; ++a, x += C + 1)
+        if (a >= a0 && a <= a1) sd += __ldg(x);
+    }
+    if (live) {
+      sums[2 * L * i + d] = su;
+      sums[2 * L * i + L + d] = sd;
     }
   }
   __syncthreads();
+
+  // 3. each pair's span, one float4 a thread and step
   const int shift = cmax - 1;
-  for (int m = threadIdx.x; m < L; m += blockDim.x) {
-    const int d0 = m - shift + cs - 1;   // e = 0 -> Ddiff
-    const int u1 = ct - 1 + shift - m;   // e = 1 -> Dsum
-    const int u2 = m + cs - 1 - shift;   // e = 2 -> Dsum
-    const int d3 = ct - 1 + shift - m;   // e = 3 -> Ddiff
-    out[m] = (d0 >= 0 && d0 < nd) ? acc_diff[d0] : 0.0f;
-    out[L + m] = (u1 >= 0 && u1 < nd) ? acc_sum[u1] : 0.0f;
-    out[2 * L + m] = (u2 >= 0 && u2 < nd) ? acc_sum[u2] : 0.0f;
-    out[3 * L + m] = (d3 >= 0 && d3 < nd) ? acc_diff[d3] : 0.0f;
+  int j = tid / L, v = tid - j * L;  // the pair and float4 of the thread's first store
+  for (int f4 = tid; f4 < P * L; f4 += kProfileThreads) {
+    const ProfilePair& p = pairs[j];
+    const int state = p.state, cs = p.cs, ct = p.ct, nd = p.nd;
+    const float* dsum = sums + 2 * L * j;
+    float f[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 4 * v + q;  // float r of the pair's 4L: e = r / L, m = r % L
+      const int e = (r >= L) + (r >= 2 * L) + (r >= 3 * L);
+      const int m = r - e * L;
+      // e = 0 -> Ddiff[m - shift + cs - 1], 1 -> Dsum[ct - 1 + shift - m],
+      // e = 2 -> Dsum[m + cs - 1 - shift],  3 -> Ddiff[ct - 1 + shift - m]
+      const int x = (e == 0 || e == 2) ? m + cs - 1 - shift : ct - 1 + shift - m;
+      f[q] = state == kNan ? NAN
+             : (x >= 0 && x < nd) ? dsum[(e == 0 || e == 3) ? L + x : x] : 0.0f;
+    }
+    float4* out = reinterpret_cast<float4*>(h + (static_cast<int64_t>(p.s) * Sp + p.t) * 4 * L);
+    out[v] = make_float4(f[0], f[1], f[2], f[3]);
+    v += kProfileThreads;
+    while (v >= L) {
+      v -= L;
+      ++j;
+    }
   }
 }
 
@@ -146,142 +265,88 @@ pair_profiles_kernel(const float* __restrict__ M, int C, const int64_t* __restri
 // the better of their maxima, and the union's second is the larger of the
 // winner's second and the loser's max.  The merge is commutative and
 // associative, so any tree of merges gives the bits of torch's argmax and
-// masked max.  A block reduces one tile of TOPK_TILE candidates of a group
-// (lanes strided over the tile, then shuffles, then the block's warps); a
-// group of one tile writes its result, a longer group writes one partial per
-// tile and topk_merge folds them, one warp a group.
+// masked max.  A block reduces one tile of candidates of a group (lanes, then
+// shuffles, then the block's warps); a group of one tile writes its result, a
+// longer group writes one partial per tile and topk_merge folds them, one
+// warp a group.  group_topk reads its scores from device memory (topk_tiles);
+// combo_score_topk scores its candidates itself (combo_kernel, below).
 // ---------------------------------------------------------------------------
 
-struct Top2 {
-  float v1;    // the max
-  float v2;    // the max without the argmax's position
-  int64_t i1;  // the argmax
+template <class I>
+struct Top2T {
+  float v1;  // the max
+  float v2;  // the max without the argmax's position
+  I i1;      // the argmax
 };
+using Top2 = Top2T<int64_t>;   // a candidate's index
+using Top2L = Top2T<int32_t>;  // a candidate's offset from its block's first
 
 __device__ __forceinline__ Top2 top2_empty() { return {-INFINITY, -INFINITY, INT64_MAX}; }
+__device__ __forceinline__ Top2L top2l_empty() { return {-INFINITY, -INFINITY, INT32_MAX}; }
 
-__device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
+template <class I>
+__device__ __forceinline__ Top2T<I> merge(const Top2T<I>& a, const Top2T<I>& b) {
   const bool a_wins = a.v1 > b.v1 || (a.v1 == b.v1 && a.i1 < b.i1);
-  const Top2& w = a_wins ? a : b;
-  const Top2& l = a_wins ? b : a;
+  const Top2T<I>& w = a_wins ? a : b;
+  const Top2T<I>& l = a_wins ? b : a;
   return {w.v1, fmaxf(w.v2, l.v1), w.i1};
 }
 
-__device__ __forceinline__ Top2 warp_merge(Top2 x) {
+__device__ __forceinline__ int32_t shfl_xor(int32_t v, int o) {
+  return __shfl_xor_sync(kFull, v, o);
+}
+__device__ __forceinline__ int64_t shfl_xor(int64_t v, int o) {
+  return __shfl_xor_sync(kFull, static_cast<long long>(v), o);
+}
+
+template <class I>
+__device__ __forceinline__ Top2T<I> warp_merge(Top2T<I> x) {
   for (int o = 16; o > 0; o >>= 1) {
-    Top2 y;
+    Top2T<I> y;
     y.v1 = __shfl_xor_sync(kFull, x.v1, o);
     y.v2 = __shfl_xor_sync(kFull, x.v2, o);
-    y.i1 = __shfl_xor_sync(kFull, static_cast<long long>(x.i1), o);
+    y.i1 = shfl_xor(x.i1, o);
     x = merge(x, y);
   }
   return x;
 }
 
-// The block's merged triple, in thread 0.
-__device__ Top2 block_merge(Top2 x) {
-  __shared__ Top2 warps[kThreads / 32];
+// The block's merged triple, in thread 0; every thread of the block calls it.
+template <class I>
+__device__ Top2T<I> block_merge(Top2T<I> x, const Top2T<I>& empty) {
+  __shared__ Top2T<I> warps[kThreads / 32];
   x = warp_merge(x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) warps[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    x = lane < static_cast<int>(blockDim.x >> 5) ? warps[lane] : top2_empty();
+    x = lane < static_cast<int>(blockDim.x >> 5) ? warps[lane] : empty;
     x = warp_merge(x);
   }
   return x;
 }
 
-// Candidate scores read from device memory.
-struct MemorySource {
-  const float* x;
-  __device__ void stage() {}
-  __device__ float value(int64_t n) const { return x[n]; }
-};
-
-// Scores of the combo factorization: cost(b, r) = sum_p V4[cid[b, p], e(r, p)]
-// + c0 with e(r, p) = 2*orients[r, i] + orients[r, j] for the p-th position
-// pair i < j.  stage() copies V4 (gathered from F once per launch) and each
-// orientation row as a bit mask into shared memory; bit 31 marks a row with a
-// flag other than 0 or 1.
-//
-// What bounds combo_score_topk on this card: the adds, P a candidate (5.16M
-// candidates x 28 terms at S = 8), against a few MB of cid read once.  The
-// XLA program writes vals = V4[cid] [Bo, P, 4] to device memory and folds it
-// with a one-hot [P, 4, R] selector in a matrix product.  Here V4 and the
-// masks sit in shared memory, each thread scores its candidates with P
-// shared-memory reads whose orientation comes from the row's bits, and the
-// scores go straight into the group merge: they never reach device memory.
-struct ComboSource {
-  const float* v4;
-  const int32_t* cid;
-  const int32_t* orients;
-  const float* c0;
-  int n_combo, R, S;
-  float* sv4;
-  uint32_t* masks;
-  float c0v;
-
-  __device__ void stage() {
-    sv4 = reinterpret_cast<float*>(dyn_smem);
-    masks = reinterpret_cast<uint32_t*>(sv4 + 4 * n_combo);
-    for (int q = threadIdx.x; q < 4 * n_combo; q += blockDim.x) sv4[q] = v4[q];
-    for (int r = threadIdx.x; r < R; r += blockDim.x) {
-      uint32_t m = 0;
-      for (int q = 0; q < S; ++q) {
-        const int32_t f = orients[static_cast<int64_t>(r) * S + q];
-        m |= (f & ~1) ? 0x80000000u : static_cast<uint32_t>(f) << q;
-      }
-      masks[r] = m;
-    }
-    c0v = *c0;
-  }
-
-  __device__ float value(int64_t n) const {
-    const int64_t b = n / R;
-    const uint32_t m = masks[n - b * R];
-    const int P = S * (S - 1) / 2;
-    const int32_t* row = cid + b * P;
-    bool bad = (m >> 31) != 0;
-    float acc = 0.0f;
-    int p = 0;
-    for (int i = 0; i < S - 1; ++i) {
-      const int ei = ((m >> i) & 1) * 2;
-      for (int j = i + 1; j < S; ++j, ++p) {
-        const unsigned c = static_cast<unsigned>(row[p]);
-        if (c >= static_cast<unsigned>(n_combo)) {
-          bad = true;
-          continue;
-        }
-        acc += sv4[4 * c + ei + ((m >> j) & 1)];
-      }
-    }
-    return bad ? NAN : acc + c0v;
-  }
-};
-
-// One tile of a group: grid (tiles, k).  With one tile a group the result
-// goes straight to (vals, idx, second); otherwise to parts[g * tiles + t].
-template <class Source>
+// One tile of a group of the scores x: grid (tiles, k).  With one tile a
+// group the result goes straight to (vals, idx, second); otherwise to
+// parts[g * tiles + t].
 __global__ void __launch_bounds__(kThreads)
-topk_tiles(Source src, int64_t N, int64_t G, int64_t tile, Top2* __restrict__ parts,
-           float* __restrict__ vals, int64_t* __restrict__ idx, float* __restrict__ second) {
-  src.stage();
-  __syncthreads();
+topk_tiles(const float* __restrict__ x, int64_t N, int64_t G, int64_t tile,
+           Top2* __restrict__ parts, float* __restrict__ vals, int64_t* __restrict__ idx,
+           float* __restrict__ second) {
   const int64_t g = blockIdx.y, t = blockIdx.x;
   const int64_t start = g * G + t * tile;
   const int64_t end = min64(start + tile, (g + 1) * G);
-  Top2 x = top2_empty();
+  Top2 m = top2_empty();
   for (int64_t n = start + threadIdx.x; n < end; n += blockDim.x)
-    x = merge(x, {n < N ? src.value(n) : -INFINITY, -INFINITY, n});
-  x = block_merge(x);
+    m = merge(m, {n < N ? x[n] : -INFINITY, -INFINITY, n});
+  m = block_merge(m, top2_empty());
   if (threadIdx.x != 0) return;
   if (gridDim.x == 1) {
-    vals[g] = x.v1;
-    idx[g] = x.i1;
-    second[g] = x.v2;
+    vals[g] = m.v1;
+    idx[g] = m.i1;
+    second[g] = m.v2;
   } else {
-    parts[g * gridDim.x + t] = x;
+    parts[g * gridDim.x + t] = m;
   }
 }
 
@@ -299,39 +364,164 @@ __global__ void topk_merge(const Top2* __restrict__ parts, int tiles, float* __r
   }
 }
 
-// Every score of a source, one per candidate (the combo kernel's k = 0 form).
-template <class Source>
-__global__ void __launch_bounds__(kThreads)
-all_scores(Source src, int64_t N, int64_t per_block, float* __restrict__ out) {
-  src.stage();
-  __syncthreads();
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t end = min64(start + per_block, N);
-  for (int64_t n = start + threadIdx.x; n < end; n += blockDim.x) out[n] = src.value(n);
+// ---------------------------------------------------------------------------
+// combo_score_topk
+//
+// Scores of the combo factorization, candidate n = b*R + r:
+// cost(b, r) = sum_p V4[cid[b, p], e(r, p)] + c0 with V4[c, e] = F[idx4[c, e]]
+// and e(r, p) = 2*orients[r, i] + orients[r, j] for the p-th position pair
+// i < j; NaN where a cid leaves [0, n_combo), an idx4 value leaves F, or a
+// flag is not 0 or 1.  k > 0: the group top-k of the scores; k = 0: every
+// score.
+//
+// What bounds it on this card: the adds, P a candidate (5.16M candidates x
+// 28 terms at S = 8), against a few MB of cid read once; in practice the P
+// shared-memory reads a candidate.  The XLA program writes vals = V4[cid]
+// [Bo, P, 4] to device memory and folds it with a one-hot [P, 4, R] selector
+// in a matrix product.
+//
+// The design.  A block of 8 warps owns a range of `tile` candidates inside one
+// group, [g*G + t*tile, min(g*G + (t+1)*tile, (g+1)*G)) (k = 0: any range);
+// G need not be a multiple of R, so a range may start and end inside an
+// order.  The block builds each orientation row's bit mask once (bit 31 marks
+// a flag other than 0 or 1), in chunks of kComboMaskChunk rows.  A warp takes
+// whole orders b of the range: it reads the order's P cid once and gathers
+// its 4P values F[idx4[cid[b, p], e]] once, into its slice of shared memory
+// (the gather is part of the kernel), then its lanes score orientations r =
+// lane + 32i of the range.  For a term p the address 4p + e(r, p) takes at
+// most 4 values across the warp, all in one 16-byte word: a broadcast.  No
+// division a candidate.  Each sum adds p ascending, then c0, as the first
+// kernel did, so the scores keep its bits.  They go straight into each lane's
+// (max, argmax, second), whose argmax is an int32 offset from the range's
+// first candidate, merged over the block and widened to int64 at the end; a
+// group of several blocks is folded by topk_merge, a second launch.  The -inf
+// padding past N is merged as its first index alone, which gives the same
+// triple as every padding candidate.
+// ---------------------------------------------------------------------------
+
+constexpr int kComboWarps = kThreads / 32;
+constexpr int kComboMaskChunk = 2048;  // orientation masks a block holds at once
+
+// sum_p values[4p + e(r, p)] of one orientation row's mask m, p ascending.
+template <int kS>
+__device__ __forceinline__ float combo_sum(const float* values, uint32_t m, int S) {
+  float acc = 0.0f;
+  int p = 0;
+  if (kS > 0) {
+#pragma unroll
+    for (int i = 0; i < kS - 1; ++i) {
+      const int hi = ((m >> i) & 1) * 2;
+#pragma unroll
+      for (int j = i + 1; j < kS; ++j, ++p) acc += values[4 * p + hi + ((m >> j) & 1)];
+    }
+  } else {
+    for (int i = 0; i < S - 1; ++i) {
+      const int hi = ((m >> i) & 1) * 2;
+      for (int j = i + 1; j < S; ++j, ++p) acc += values[4 * p + hi + ((m >> j) & 1)];
+    }
+  }
+  return acc;
 }
 
-__global__ void gather_v4(const float* __restrict__ F, int64_t f_numel,
-                          const int64_t* __restrict__ idx4, int64_t n, float* __restrict__ v4) {
-  for (int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; q < n;
-       q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t i = idx4[q];
-    v4[q] = (i >= 0 && i < f_numel) ? F[i] : NAN;
+template <int kS, bool kTopk>
+__global__ void __launch_bounds__(kThreads)
+combo_kernel(const float* __restrict__ F, int64_t f_numel, const int64_t* __restrict__ idx4,
+             int n_combo, const int32_t* __restrict__ cid, int64_t N,
+             const int32_t* __restrict__ orients, int R, int S, const float* __restrict__ c0,
+             int64_t G, int64_t tile, Top2* __restrict__ parts, float* __restrict__ costs,
+             float* __restrict__ vals, int64_t* __restrict__ idx, float* __restrict__ second) {
+  const int P = S * (S - 1) / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(dyn_smem);  // [min(R, kComboMaskChunk)]
+  float* values = reinterpret_cast<float*>(masks + min(R, kComboMaskChunk)) + warp * 4 * P;
+  const int64_t g = blockIdx.y;
+  const int64_t lo = kTopk ? g * G + blockIdx.x * tile : blockIdx.x * tile;
+  const int64_t hi = min64(lo + tile, kTopk ? (g + 1) * G : N);
+  const int64_t real_hi = min64(hi, N);  // [real_hi, hi): the last group's padding
+  const float c0v = *c0;
+  Top2L x = top2l_empty();
+  for (int r0 = 0; r0 < R; r0 += kComboMaskChunk) {
+    const int r1 = min(R, r0 + kComboMaskChunk);
+    __syncthreads();  // the previous chunk's masks have been read
+    for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+      uint32_t m = 0;
+      for (int q = 0; q < S; ++q) {
+        const int32_t f = orients[static_cast<int64_t>(r) * S + q];
+        m |= (f & ~1) ? 0x80000000u : static_cast<uint32_t>(f) << q;
+      }
+      masks[r - r0] = m;
+    }
+    __syncthreads();
+    if (lo >= real_hi) continue;
+    for (int64_t b = lo / R + warp, b_last = (real_hi - 1) / R; b <= b_last; b += kComboWarps) {
+      const int64_t nb = b * R;
+      const int rl = static_cast<int>(max64(r0, lo - nb));
+      const int rh = static_cast<int>(min64(r1, real_hi - nb));
+      if (rl >= rh) continue;  // the order has no candidate of this chunk in the range
+      const int32_t* row = cid + b * P;
+      for (int q = lane; q < 4 * P; q += 32) {
+        const unsigned c = static_cast<unsigned>(row[q >> 2]);
+        float v = NAN;
+        if (c < static_cast<unsigned>(n_combo)) {
+          const int64_t i = idx4[4 * static_cast<int64_t>(c) + (q & 3)];
+          if (i >= 0 && i < f_numel) v = F[i];
+        }
+        values[q] = v;
+      }
+      __syncwarp();
+      for (int r = r0 + lane; r < rh; r += 32) {
+        if (r < rl) continue;
+        const uint32_t m = masks[r - r0];
+        const float score = (m >> 31) ? NAN : combo_sum<kS>(values, m, S) + c0v;
+        if (kTopk)
+          x = merge(x, Top2L{score, -INFINITY, static_cast<int32_t>(nb + r - lo)});
+        else
+          costs[nb + r] = score;
+      }
+      __syncwarp();  // the values are read before the next order's gather
+    }
+  }
+  if (!kTopk) return;
+  if (threadIdx.x == 0 && real_hi < hi)
+    x = merge(x, Top2L{-INFINITY, -INFINITY, static_cast<int32_t>(max64(lo, N) - lo)});
+  x = block_merge(x, top2l_empty());
+  if (threadIdx.x != 0) return;
+  const Top2 w{x.v1, x.v2, lo + x.i1};
+  if (gridDim.x == 1) {
+    vals[g] = w.v1;
+    idx[g] = w.i1;
+    second[g] = w.v2;
+  } else {
+    parts[g * gridDim.x + blockIdx.x] = w;
   }
 }
 
-template <class Source>
-cudaError_t launch_topk(Source src, size_t smem, int64_t N, int k, int64_t tile, void* parts,
-                        float* vals, int64_t* idx, float* second, cudaStream_t stream) {
-  const int64_t G = (N + k - 1) / k;
+template <int kS>
+cudaError_t launch_combo(const float* F, int64_t f_numel, const int64_t* idx4, int n_combo,
+                         const int32_t* cid, int64_t Bo, const int32_t* orients, int R, int S,
+                         const float* c0, int k, int64_t tile, Top2* parts, float* costs,
+                         float* vals, int64_t* idx, float* second, cudaStream_t stream) {
+  const int64_t N = Bo * R;
+  const size_t smem = sizeof(uint32_t) * std::min(R, kComboMaskChunk) +
+                      sizeof(float) * kComboWarps * 2 * S * (S - 1);
+  const int64_t G = k > 0 ? (N + k - 1) / k : N;
   const int64_t tiles = (G + tile - 1) / tile;
   if (tiles > INT32_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&topk_tiles<Source>), smem);
+  const void* kernel = k > 0 ? reinterpret_cast<const void*>(&combo_kernel<kS, true>)
+                             : reinterpret_cast<const void*>(&combo_kernel<kS, false>);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  topk_tiles<Source><<<dim3(static_cast<unsigned>(tiles), k), kThreads, smem, stream>>>(
-      src, N, G, tile, static_cast<Top2*>(parts), vals, idx, second);
+  if (k == 0) {
+    combo_kernel<kS, false><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
+        F, f_numel, idx4, n_combo, cid, N, orients, R, S, c0, G, tile, parts, costs, vals, idx,
+        second);
+    return cudaGetLastError();
+  }
+  combo_kernel<kS, true><<<dim3(static_cast<unsigned>(tiles), k), kThreads, smem, stream>>>(
+      F, f_numel, idx4, n_combo, cid, N, orients, R, S, c0, G, tile, parts, costs, vals, idx,
+      second);
   if (tiles > 1)
-    topk_merge<<<k, 32, 0, stream>>>(static_cast<const Top2*>(parts), static_cast<int>(tiles),
-                                      vals, idx, second);
+    topk_merge<<<k, 32, 0, stream>>>(parts, static_cast<int>(tiles), vals, idx, second);
   return cudaGetLastError();
 }
 
@@ -552,56 +742,64 @@ pair_score_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __res
 
 }  // namespace
 
-// M: float32 [C, C] row-major; sizes: int64 [Sp]; h: float32 [4*Sp*Sp, 2*cmax - 1].
+// M: float32 [C, C] row-major; sizes: int64 [Sp]; h: float32 [4*Sp*Sp, 2*cmax - 1];
+// pairs_per_block: 1..8 pairs of a wrapped diagonal a block (2 * (2*cmax - 1)
+// floats of shared memory each).
 extern "C" int pair_profiles(const float* M, int C, const int64_t* sizes, int Sp, int cmax,
-                             float* h, cudaStream_t stream) {
-  if (C < 1 || Sp < 1 || Sp > 65535 || cmax < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int L = 2 * cmax - 1;
-  const size_t acc = sizeof(float) * 2 * L;
-  int rows = 16;  // staged rows: as many as fit the default 48 KB, at least one
-  while (rows > 1 && acc + sizeof(float) * rows * cmax > static_cast<size_t>(kSmemDefault))
-    rows /= 2;
-  const size_t smem = acc + sizeof(float) * rows * cmax;
+                             int pairs_per_block, float* h, cudaStream_t stream) {
+  if (C < 1 || Sp < 1 || Sp > 65535 || cmax < 1 || pairs_per_block < 1 ||
+      pairs_per_block > kProfileMaxPairs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * 2 * (2 * cmax - 1) * pairs_per_block;
+  const int chunks = (Sp + pairs_per_block - 1) / pairs_per_block;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(&pair_profiles_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_profiles_kernel<<<dim3(Sp, Sp), kThreads, smem, stream>>>(M, C, sizes, Sp, cmax, rows, h);
+  pair_profiles_kernel<<<dim3(chunks, Sp), kProfileThreads, smem, stream>>>(
+      M, C, sizes, Sp, cmax, pairs_per_block, h);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Combo scores of Bo orders x R orientations.  k == 0: every score into
-// costs [Bo, R].  k > 0: the group top-k into vals/idx/second [k] (parts:
-// k * ceil(ceil(N / k) / tile) 16-byte partials when a group spans tiles).
-// v4: float32 scratch [n_combo * 4].
+// Combo scores of Bo orders x R orientations, `tile` candidates a block.
+// k == 0: every score into costs [Bo, R].  k > 0: the group top-k into
+// vals/idx/second [k] (parts: k * ceil(ceil(N / k) / tile) 16-byte partials
+// when a group spans blocks).
 extern "C" int combo_score_topk(const float* F, int64_t f_numel, const int64_t* idx4,
                                 int n_combo, const int32_t* cid, int64_t Bo,
                                 const int32_t* orients, int R, int S, const float* c0, int k,
-                                int64_t tile, float* v4, void* parts, float* costs, float* vals,
+                                int64_t tile, void* parts, float* costs, float* vals,
                                 int64_t* idx, float* second, cudaStream_t stream) {
-  if (n_combo < 1 || Bo < 1 || R < 1 || S < 2 || S > 31 || k < 0 || k > 65535 || tile < 1)
+  if (n_combo < 1 || Bo < 1 || R < 1 || S < 2 || S > 31 || k < 0 || k > 65535 || tile < 1 ||
+      tile > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n4 = 4 * static_cast<int64_t>(n_combo);
-  gather_v4<<<static_cast<unsigned>(std::min<int64_t>((n4 + kThreads - 1) / kThreads, 1024)),
-              kThreads, 0, stream>>>(F, f_numel, idx4, n4, v4);
-  ComboSource src{v4, cid, orients, c0, n_combo, R, S, nullptr, nullptr, 0.0f};
-  const size_t smem = sizeof(float) * n4 + sizeof(uint32_t) * R;
-  const int64_t N = Bo * R;
-  if (k > 0) return static_cast<int>(launch_topk(src, smem, N, k, tile, parts, vals, idx,
-                                                 second, stream));
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&all_scores<ComboSource>), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (N + tile - 1) / tile;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  all_scores<ComboSource><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      src, N, tile, costs);
-  return static_cast<int>(cudaGetLastError());
+  Top2* p = static_cast<Top2*>(parts);
+  switch (S) {
+#define COMBO_CASE(n)                                                                       \
+  case n:                                                                                  \
+    return static_cast<int>(launch_combo<n>(F, f_numel, idx4, n_combo, cid, Bo, orients, R, \
+                                            S, c0, k, tile, p, costs, vals, idx, second,   \
+                                            stream));
+    COMBO_CASE(2) COMBO_CASE(3) COMBO_CASE(4) COMBO_CASE(5) COMBO_CASE(6) COMBO_CASE(7)
+    COMBO_CASE(8)
+#undef COMBO_CASE
+    default:  // S > 8: the sums' loops are not unrolled
+      return static_cast<int>(launch_combo<0>(F, f_numel, idx4, n_combo, cid, Bo, orients, R, S,
+                                              c0, k, tile, p, costs, vals, idx, second, stream));
+  }
 }
 
 // The group top-k of the float32 scores x [N] in k groups (see combo_score_topk).
 extern "C" int group_topk(const float* x, int64_t N, int k, int64_t tile, void* parts,
                           float* vals, int64_t* idx, float* second, cudaStream_t stream) {
   if (N < 1 || k < 1 || k > 65535 || tile < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_topk(MemorySource{x}, 0, N, k, tile, parts, vals, idx, second,
-                                      stream));
+  const int64_t G = (N + k - 1) / k;
+  const int64_t tiles = (G + tile - 1) / tile;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  Top2* p = static_cast<Top2*>(parts);
+  topk_tiles<<<dim3(static_cast<unsigned>(tiles), k), kThreads, 0, stream>>>(x, N, G, tile, p,
+                                                                             vals, idx, second);
+  if (tiles > 1)
+    topk_merge<<<k, 32, 0, stream>>>(p, static_cast<int>(tiles), vals, idx, second);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // orders: int32 [Bo, S]; orients: int32 [R, S]; costs: float32 [Bo, R].

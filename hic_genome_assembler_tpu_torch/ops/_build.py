@@ -111,12 +111,12 @@ SIGNATURES = {
     "hmm_forward_backward": [_PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR],
     # log_b, log_start, log_trans, T, scratch uint8 [max(T - 1, 1), 2], path int32 [T]
     "hmm_viterbi": [_PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR],
-    # M [C, C], C, sizes int64 [Sp], Sp, cmax, h [4*Sp*Sp, 2*cmax - 1]
-    "pair_profiles": [_PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR],
+    # M [C, C], C, sizes int64 [Sp], Sp, cmax, pairs a block, h [4*Sp*Sp, 2*cmax - 1]
+    "pair_profiles": [_PTR, _INT, _PTR, _INT, _INT, _INT, _PTR, _PTR],
     # F, F's numel, idx4 [n_combo, 4], n_combo, cid [Bo, P], Bo, orients [R, S],
-    # R, S, c0, k, tile, v4 scratch, parts scratch, costs, vals, idx, second
+    # R, S, c0, k, tile, parts scratch, costs, vals, idx, second
     "combo_score_topk": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _PTR, _INT, _INT, _PTR, _INT,
-                         _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
+                         _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
     # x [N], N, k, tile, parts scratch, vals, idx, second
     "group_topk": [_PTR, _I64, _INT, _I64, _PTR, _PTR, _PTR, _PTR, _PTR],
     # F, C + 1, sizes, Sp, orders [Bo, S], Bo, S, orients [R, S], R, c0, costs [Bo, R]

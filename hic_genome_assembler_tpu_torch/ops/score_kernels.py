@@ -50,6 +50,12 @@ LAUNCHES = {
 # this is split into tiles whose partial results a second pass merges).
 TOPK_TILE = 4096
 _SMEM_MAX = 227 * 1024     # shared memory a block may use on Hopper
+# the profile kernel: (s, t) pairs of one wrapped diagonal a block, as many as
+# PROFILE_SMEM bytes of diagonal sums hold (8 * L bytes a pair), 1 to
+# PROFILE_MAX_PAIRS; its static shared memory stays under PROFILE_STATIC
+PROFILE_SMEM = 48 * 1024
+PROFILE_MAX_PAIRS = 8
+PROFILE_STATIC = 2048
 _MAX_GRID_Y = 65535
 _PAIR_MAX_W = 6144         # one warp's slot tables (8 bytes a slot) in 48 KB
 _BLOCK_MAX_S = 31          # a row's orientations as the bits of a uint32
@@ -299,6 +305,13 @@ def pair_profiles_plain(
     return h4.reshape(Sp * Sp * 4, L)
 
 
+def profile_pairs_per_block(cmax: int) -> int:
+    """The (s, t) pairs one block of the profile kernel owns: as many as
+    :data:`PROFILE_SMEM` bytes of their diagonal sums (2 * L floats a pair)
+    hold, 1 to :data:`PROFILE_MAX_PAIRS`."""
+    return max(1, min(PROFILE_MAX_PAIRS, PROFILE_SMEM // (8 * (2 * cmax - 1))))
+
+
 def _check_profiles(sub, sizes, cmax: int) -> int:
     dev = sub.device
     _tensor(sub, "sub", _FLOATS, 2, dev)
@@ -308,7 +321,7 @@ def _check_profiles(sub, sizes, cmax: int) -> int:
     if not 1 <= cmax < 2**15 or sizes.shape[0] < 1:
         raise ValueError(f"cmax = {cmax} or Sp = {sizes.shape[0]} is out of range")
     L = 2 * cmax - 1
-    if 8 * L + 4 * cmax > _SMEM_MAX:
+    if 8 * L > _SMEM_MAX - PROFILE_STATIC:
         raise ValueError(f"cmax = {cmax} is too wide for the profile kernel's shared memory")
     return L
 
@@ -326,7 +339,8 @@ def pair_profiles(sub: torch.Tensor, sizes: torch.Tensor, cmax: int) -> torch.Te
     h = torch.empty((4 * Sp * Sp, L), dtype=torch.float32, device=sub.device)
     lib = _library()
     _launch("pair_profiles", sub.device, lib.pair_profiles,
-            sub.data_ptr(), sub.shape[0], sizes.data_ptr(), Sp, cmax, h.data_ptr())
+            sub.data_ptr(), sub.shape[0], sizes.data_ptr(), Sp, cmax,
+            profile_pairs_per_block(cmax), h.data_ptr())
     return h
 
 
@@ -420,9 +434,6 @@ def _check_combo(F_flat, idx4, cid, orients, c0) -> int:
         raise ValueError(f"idx4 must be [n_combo, 4], got {tuple(idx4.shape)}")
     if not 2 <= S <= 31 or cid.shape[1] != S * (S - 1) // 2:
         raise ValueError(f"cid {tuple(cid.shape)} does not match S = {S} positions")
-    if 16 * idx4.shape[0] + 4 * orients.shape[0] > _SMEM_MAX:
-        raise ValueError(f"{idx4.shape[0]} combos and {orients.shape[0]} orientations exceed "
-                         "the combo kernel's shared memory")
     n = cid.shape[0] * orients.shape[0]
     if not 1 <= n < 2**62:
         raise ValueError(f"{n} candidates is out of range")
@@ -432,14 +443,13 @@ def _check_combo(F_flat, idx4, cid, orients, c0) -> int:
 def _combo_launch(F_flat, idx4, cid, orients, c0, k: int, costs=None, topk=None) -> None:
     """One ``combo_score_topk`` launch: the scores into ``costs`` (k = 0),
     or the top-k outputs ``(vals, idx, second, parts)``."""
-    v4 = torch.empty(idx4.shape[0] * 4, dtype=torch.float32, device=F_flat.device)
     vals, idx, second, parts = (None,) * 4 if topk is None else topk
     ptrs = [None if t is None else t.data_ptr() for t in (parts, costs, vals, idx, second)]
     lib = _library()
     _launch("combo_score_topk", F_flat.device, lib.combo_score_topk,
             F_flat.data_ptr(), F_flat.numel(), idx4.data_ptr(), idx4.shape[0], cid.data_ptr(),
             cid.shape[0], orients.data_ptr(), orients.shape[0], orients.shape[1],
-            c0.data_ptr(), k, TOPK_TILE, v4.data_ptr(), *ptrs)
+            c0.data_ptr(), k, TOPK_TILE, *ptrs)
 
 
 def combo_scores(F_flat, idx4, cid, orients, c0) -> torch.Tensor:

@@ -551,6 +551,101 @@ def test_pair_profiles_kernel_matches_plain(cuda, top, cmax, kind):
         assert torch.equal(got, sk.pair_profiles_plain(M, sz, cmax, 1))
 
 
+# the profile kernel's edges: (sizes, cmax); a block holds up to 8 pairs of a
+# wrapped diagonal, a pair's diagonals spread over the block's 512 threads
+_PROFILE_EDGES = {
+    "one scaffold (Sp = 1)": ([37], 64),
+    "two large scaffolds: a pair larger than a warp's share": ([300, 280, 7, 1, 0], 320),
+    "every scaffold at cmax, with pads": ([64] * 11 + [0] * 5, 64),
+    "cmax at the shared-memory limit: one pair a block": ([3000, 5, 0], 14400),
+    "Sp = 600: ids past the scan's first chunk of 512": ([int(x) for x in np.arange(600) % 7 + 1],
+                                                           8),
+}
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("edge", list(_PROFILE_EDGES))
+def test_pair_profiles_kernel_edges_match_plain(cuda, edge, kind):
+    """Integer inputs exact, floats within ``sum_bound``, two launches
+    bit-identical."""
+    sizes, cmax = _PROFILE_EDGES[edge]
+    sizes = np.asarray(sizes, dtype=np.int64)
+    rng = np.random.default_rng(len(sizes) + cmax)
+    C = int(sizes.sum())
+    m = rng.integers(0, 8, (C, C)) if kind == "int" else rng.random((C, C))
+    M, sz = torch.from_numpy(m.astype(np.float32)).to(cuda), torch.from_numpy(sizes).to(cuda)
+    got, again = sk.pair_profiles(M, sz, cmax), sk.pair_profiles(M, sz, cmax)
+    assert torch.equal(got, again)
+    exact = sk.pair_profiles_plain(M.double(), sz, cmax)
+    _close_or_equal(got, sk.pair_profiles_plain(M, sz, cmax), kind, cmax, exact)
+
+
+@pytest.mark.parametrize("sizes", [[8, 8, 8, 0], [3, 70, 2, 0], [5, -1, 2], [4, 4, 4]])
+def test_pair_profiles_kernel_nan_for_a_layout_that_overruns(cuda, sizes):
+    """A size below 0 or above cmax, or past the matrix (C = 20), makes
+    NaN rows for every pair that names the id; the other rows hold
+    numbers."""
+    C, cmax = 20, 64
+    M = torch.rand((C, C), device=cuda)
+    sz = torch.tensor(sizes, device=cuda)
+    got = sk.pair_profiles(M, sz, cmax).reshape(len(sizes), len(sizes), 4, -1)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    bad = np.array([c < 0 or c > cmax or o + c > C for o, c in zip(offs, sizes)])
+    want_nan = torch.from_numpy(bad[:, None] | bad[None, :]).to(cuda)
+    assert torch.equal(torch.isnan(got).all(dim=3).all(dim=2), want_nan)
+    assert not torch.isnan(got[~want_nan]).any()
+
+
+@pytest.mark.parametrize("tile", [1, 100, 360, 5000])
+@pytest.mark.parametrize("S,k", [(6, 64), (6, 11), (5, 7), (8, 3)])
+def test_combo_topk_kernel_blocks_clipped_inside_orders(cuda, monkeypatch, S, k, tile):
+    """Blocks of ``tile`` candidates cut groups (G = 360 at S = 6, k = 64: no
+    multiple of R = 64) and orders at their edges; a group of several
+    blocks goes through the merge launch.  Integer scores: exact."""
+    monkeypatch.setattr(sk, "TOPK_TILE", tile)
+    rng = np.random.default_rng(S * k + tile)
+    combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+    cid = np.ascontiguousarray(combo["cid"][: 600 if S == 8 else None], dtype=np.int32)
+    F = torch.from_numpy(rng.integers(0, 3, 4 * 9 * 9 * 65).astype(np.float32)).to(cuda)
+    args = [F, torch.from_numpy(rng.integers(0, F.numel(), (combo["n_combo"], 4))).to(cuda),
+            torch.from_numpy(cid).to(cuda),
+            torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda),
+            torch.tensor(3.0, device=cuda)]
+    got, again = sk.combo_score_topk(*args, k), sk.combo_score_topk(*args, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, sk.combo_score_topk_plain(*args, k)))
+    assert torch.equal(sk.combo_scores(*args), sk.combo_scores_plain(*args))
+
+
+def test_combo_kernel_nan_for_bad_combos_and_flags(cuda):
+    """A cid outside [0, n_combo), an idx4 value outside F, or a flag other
+    than 0 or 1: NaN for that order's or orientation's candidates only."""
+    S = 5
+    combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+    rng = np.random.default_rng(3)
+    F = torch.rand(4 * 9 * 9 * 65, device=cuda)
+    idx4 = rng.integers(0, F.numel(), (combo["n_combo"], 4))
+    cid = np.ascontiguousarray(combo["cid"], dtype=np.int32)
+    orients = np.array(perms.orient_batch(S))
+    cid[3, 2] = combo["n_combo"]
+    idx4[cid[7, 0], 1] = F.numel()           # V4[c, 1] is NaN for one combo of order 7
+    orients[5, 1] = 2
+    scores = sk.combo_scores(F, torch.from_numpy(idx4).to(cuda), torch.from_numpy(cid).to(cuda),
+                             torch.from_numpy(orients).to(cuda),
+                             torch.tensor(1.0, device=cuda)).cpu().numpy()
+    # the NaN pattern in numpy: V4 NaN where idx4 leaves F, a bad cid or flag NaN
+    f = F.cpu().numpy().astype(np.float64)
+    v4 = np.where(idx4 < f.size, f[np.minimum(idx4, f.size - 1)], np.nan)
+    good_cid = cid < combo["n_combo"]
+    vals = np.where(good_cid[:, :, None], v4[np.where(good_cid, cid, 0)], np.nan)  # [Bo, P, 4]
+    pi, pj = np.triu_indices(S, k=1)
+    e = np.minimum(orients[:, pi], 1) * 2 + np.minimum(orients[:, pj], 1)      # [R, P]
+    want = vals[:, np.arange(len(pi))[None, :], e].sum(axis=2)                  # [Bo, R]
+    want[:, (orients > 1).any(axis=1)] = np.nan
+    assert np.isnan(scores[3]).all() and np.isnan(scores[:, 5]).all()
+    np.testing.assert_array_equal(np.isnan(scores), np.isnan(want))
+
+
 def test_forced_escalation_on_cuda_equals_cpu(cuda):
     """Six one-bin scaffolds: every orientation of an order ties exactly, so
     the brute force escalates to the dense block scores; the card decides

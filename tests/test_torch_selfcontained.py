@@ -46,6 +46,50 @@ PORT_FILES = sorted(
 JAX_PACKAGE = "hic_genome_assembler_tpu"
 
 
+def _publish_jax_native():
+    """Builds the JAX package's native IO library before any test runs.
+
+    The JAX package links ``native/libhicio.so`` in place (``g++ -o``) the
+    first time a process needs it, and loads any file it finds there, so a
+    test worker that starts while another links the library loads a
+    half-written file (``OSError: ... file too short``).  Every test worker
+    imports this module while it collects, before it runs a test: here one
+    worker at a time (a file lock) builds the library under a private name
+    and renames it into place when it is missing or older than its sources,
+    so the JAX package then only loads a whole file.  The port's own library
+    is linked under a private name and renamed, and needs no such step."""
+    import fcntl
+    import subprocess
+
+    from hic_genome_assembler_tpu.io import native as jax_native
+
+    def current():
+        return os.path.exists(jax_native._SO_PATH) and all(
+            os.path.getmtime(src) <= os.path.getmtime(jax_native._SO_PATH)
+            for src in jax_native._SOURCES)
+
+    if current():
+        return
+    lock = os.open(jax_native._NATIVE_DIR, os.O_RDONLY)  # the directory is the lock
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if current():
+            return
+        tmp = f"{jax_native._SO_PATH}.{os.getpid()}.tmp"
+        built = subprocess.run(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-o", tmp,
+             *jax_native._SOURCES], capture_output=True).returncode == 0
+        if built:
+            os.replace(tmp, jax_native._SO_PATH)
+        elif os.path.exists(tmp):
+            os.remove(tmp)
+    finally:
+        os.close(lock)
+
+
+_publish_jax_native()
+
+
 def _names_the_jax_package(module) -> bool:
     return module == JAX_PACKAGE or (module or "").startswith(JAX_PACKAGE + ".")
 
