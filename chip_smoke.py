@@ -67,10 +67,17 @@ passes or fails the run:
    its bound (bytes: each input read once, of the table only the distinct
    values the launch gathers, of the matrix only the off-diagonal blocks
    the profile kernel reads), and the table product h @ Wm at its most
-   frequent shape.  The pair-score batches include one shaped as the
-   sliding window builds it; the previous kernel's times (``OLD_PAIR``,
-   from another run) are printed beside them, and stay out of the kernels'
-   JSON record.  The
+   frequent shape.  The block kernel runs in its grid form (the
+   escalation's chunk and the whole escalation at S = 8, R not a multiple
+   of 4 or 32, repeated ids) and its top-k form (a one-scaffold
+   chromosome's 1 x 2, its only caller, and 20,160 orders at S = 9 with all
+   512 orientations and with 64 random rows, which no caller reaches), with
+   the two-launch form and the JAX function's formulation in two PyTorch
+   calls (a gather, then addmm: ``library_ms``) timed beside it;
+   ``group_topk`` alone is timed at the mesh path's shape and one tile.  The pair-score batches include one
+   shaped as the sliding window builds it; the previous kernels' times
+   (``OLD_PAIR``, ``OLD_BLOCK``, from another run) are printed beside them,
+   and stay out of the kernels' JSON record.  The
    top-k sweep (``topk_sweep``: 1, 2, 3 and 20+ tiles, ragged groups,
    integer ties, 5 seeds) runs three times.  The profile and combo
    kernels' previous times at these shapes (``OLD_PROFILES``,
@@ -79,8 +86,11 @@ passes or fails the run:
    replayed on their own inputs (``phase_score_replay``): each held to its
    plain version, two launches bit-identical, and each set's device time
    (``queued_ms``) printed beside its summed bound.  Then
-   part 2's brute force with a forced escalation, on the card and on the
-   CPU: the same decision, and the block kernel launched;
+   part 2's brute force with a forced escalation over six and over eight
+   one-bin scaffolds (5,160,960 dense scores), on the card and on the CPU:
+   the same decision, and the block kernel launched; at eight, the
+   escalation's split (the block launches' device time, the readback,
+   pinned and as pageable copies, and the host's dense decision);
 6. HMM path: the CLI (-part1 -part2 -part3 -part4, device cuda, hmm = True)
    on the 3,715-bin HMM genome; its cut list and part-1 files must equal
    the JAX package's golden record (utils/hmm_golden_3715.json); output in
@@ -109,7 +119,7 @@ passes or fails the run:
    and each process prints its scoring kernels' launches, which must cover
    the three of its shard's path and sum to phase 4's.  Output in build/chip_smoke_ep{0,1}.log.
 
-Each of phases 4, 5b (the forced escalation), 6, 7 and 9 sets the launch
+Each of phases 4, 5b (each forced escalation), 6, 7 and 9 sets the launch
 counts of its kernels to 0 just before it drives its path and fails if a
 kernel of that path was not launched; phase 10's processes start from 0.
 Phase 1 prints the card's nvidia-smi name and power limit, and phases 3,
@@ -117,7 +127,7 @@ Phase 1 prints the card's nvidia-smi name and power limit, and phases 3,
 torch.profiler is printed only where the trace holds one event for each
 launch the wrapper counted (``device_ms``), else "not measured".  The
 second-to-last stdout line is the kernels' JSON record (each kernel's
-launches from its path: block_score's from the forced escalation, the
+launches from its path: block_score's from the forced escalations, the
 others' from phase 4), the last line {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -207,18 +217,26 @@ OLD_PAIR = {"from": _OLD_FROM,
 _OLD_FROM_A210703 = "commit a210703's kernels, another run, NVIDIA H100 80GB HBM3, 700.00 W"
 OLD_PROFILES = {"from": _OLD_FROM_A210703, "cmax=384": 0.0531, "cmax=128": 0.0201}
 OLD_COMBO = {"from": _OLD_FROM_A210703, "S=6 360x64": 0.0111, "S=8 20160x256": 0.2489}
+# The block kernel of commit 9ea1eec at phase 5b's shapes (queued device
+# times; its top-k form is block_scores, then group_argmax), measured in
+# another run in turns with this script's kernels; printed, never put in
+# the JSON record.
+OLD_BLOCK = {"from": "commit 9ea1eec's kernels, another run, NVIDIA H100 80GB HBM3, 700.00 W",
+             "S=8 2048x256": 0.0174, "S=8 20160x256": 0.1143, "S=9 20160x512 top-k": 0.2762}
 REPLAY_ITERS = 5                   # queued launches a replayed profile build or combo launch
 # the scoring phase's shapes: pair-score batches (label, B, real ids a row,
 # rows random, shaped as the sliding window's, or with pads scattered
 # inside), combo batches (S, Sp, C + 1 of the table),
-# block batches (S, orders), profile builds (largest scaffold, cmax);
+# block batches (S, orders, every orientation or so many random rows) of
+# the grid and the top-k form, profile builds (largest scaffold, cmax);
 # the first of each is the one timed on the main path
 SCORE_SHAPES = {
     "pair": (("window B=30720", 30720, 55, "random"),
              ("window-shaped B=30720", 30720, 55, "window"),
              ("greedy B=112", 112, 30, "random"), ("pads inside B=509", 509, 40, "scatter")),
     "combo": ((6, SCORE_SP, SCORE_CP1), (8, 9, 2049)),
-    "block": ((8, 2048), (6, 360)),
+    "block": ((8, 2048, "all"), (8, 20160, "all"), (6, 360, "all"), (8, 500, 37), (8, 500, 100)),
+    "block_topk": ((1, 1, "all"), (9, 20160, "all"), (9, 20160, 64)),
     "profiles": ((380, 384), (120, 128)),
 }
 PART1_FILES = ("dendrogramOrder.txt", "binGroupings.txt", "clusterAssessment.txt",
@@ -361,7 +379,8 @@ def score_launches():
 
 
 PLAIN_SCORERS = ("pair_profiles_plain", "combo_scores_plain", "combo_score_topk_plain",
-                 "block_scores_plain", "pair_scores_plain", "_group_argmax")
+                 "block_scores_plain", "block_score_topk_plain", "pair_scores_plain",
+                 "_group_argmax")
 
 
 @contextlib.contextmanager
@@ -1192,7 +1211,7 @@ def phase_score_kernels(torch, np, device="cuda"):
     check(sizes_np.sum() <= SCORE_CP1 - 1, "scoring fixture sizes overrun the table")
     sizes = up(sizes_np, np.int64)
     pad = SCORE_SP - 1
-    timing = {}
+    timing, library = {}, {}
 
     # -- pair scores: greedy (B = 112, K + 1 real ids then pads), sliding
     # window (B = 30,720: random rows of every id, and rows shaped as the
@@ -1297,43 +1316,89 @@ def phase_score_kernels(torch, np, device="cuda"):
             *score_bound_ms(nbytes, N * (P + 2)), f"{N} candidates")
     del F
 
-    # -- block scores: the escalation's chunk of 2,048 orders x 256 at S = 8
-    # and 360 x 64 at S = 6 (ids of the pair table), and repeated ids
-    ids8 = rng.permutation(SCORE_SP - 1)[:8]
-    block_cases = {f"S={S} {Bo}x{2 ** S}": (ids8[:S][perms.order_batch(S)[:Bo]],
-                                          perms.orient_batch(S))
-                   for S, Bo in SCORE_SHAPES["block"]}
-    block_cases["S=5 repeated ids 300x32"] = (rng.integers(0, 20, (300, 5)), perms.orient_batch(5))
-    timed_block = next(iter(block_cases))
+    # -- block scores, the grid form: the escalation's chunk (2,048 orders x
+    # 256 at S = 8: its path, timed first), the whole escalation (20,160 x
+    # 256) in one launch, the main path's S = 6, repeated ids, and R not a
+    # multiple of 4 or 32; the top-k form: a one-scaffold chromosome (1 x 2,
+    # k = 2: part 2's only caller of it, timed first), and 20,160 orders at
+    # S = 9 with every orientation (timed) and with 64 random rows, shapes
+    # no caller reaches (nScaffolds is at most 8, and an order of distinct
+    # ids at S >= 2 takes the combo path)
+    ids9 = rng.permutation(SCORE_SP - 1)[:9]
+
+    def block_case(S, Bo, rows):
+        label = f"S={S} {Bo}x{2 ** S}" if rows == "all" else f"S={S} {Bo}x{rows} random rows"
+        orients_np = perms.orient_batch(S) if rows == "all" else rng.integers(0, 2, (rows, S))
+        return label, (ids9[:S][perms.order_batch(S)[:Bo]], orients_np)
+
+    grid_cases = dict(block_case(*c) for c in SCORE_SHAPES["block"])
+    grid_cases["S=5 repeated ids 300x32"] = (rng.integers(0, 20, (300, 5)), perms.orient_batch(5))
+    topk_cases = {label + " top-k": case
+                  for label, case in (block_case(*c) for c in SCORE_SHAPES["block_topk"])}
+    timed = list(grid_cases)[:2] + list(topk_cases)[:2]
+
+    def topk_k(args):
+        """The top-k form's groups as the non-combo path asks for them."""
+        return min(64, args[2].shape[0] * args[3].shape[0])
+
+    block_inputs = {}
     for kind in ("int", "float"):
         F, c0 = table(SCORE_SP, SCORE_CP1, kind, sizes_np), scalar(kind)
-        for label, (orders_np, orients_np) in block_cases.items():
+        for label, (orders_np, orients_np) in {**grid_cases, **topk_cases}.items():
             S = orders_np.shape[1]
             args = [F, sizes, up(orders_np, np.int32), up(orients_np, np.int32), c0]
-            held("block_score", label, kind, sk.block_scores, sk.block_scores_plain, args,
-                 S * (S - 1) // 2 + 1)
-            if label == timed_block:
-                held("block_score", label + " top-k", kind,
-                     lambda *a: sk.group_argmax(sk.block_scores(*a).reshape(-1), 64),
-                     lambda *a: sk._group_argmax(sk.block_scores_plain(*a).reshape(-1), 64),
-                     args, S * (S - 1) // 2 + 1)
-                block_args = args
-    Bo, S = block_args[2].shape
-    R, P = block_args[3].shape[0], S * (S - 1) // 2
-    # each order gathers the four orientations' values of each of its pairs
-    pi, pj = (torch.from_numpy(a).to(dev) for a in np.triu_indices(S, k=1))
-    orders = block_args[2].long()
-    base = table_indices(sizes, orders, torch.zeros_like(orders), pi, pj, SCORE_CP1)
-    gathered = base[:, None] + SCORE_CP1 * torch.arange(4, device=dev)[None, :]
-    nbytes = Bo * S * 4 + R * S * 4 + SCORE_SP * 8 + 4 * distinct(gathered) + 4 + Bo * R * 4
-    timing[("block_score", timed_block)] = (
-        cuda_ms(torch, lambda: sk.block_scores(*block_args), 50),
-        device_ms(torch, lambda: sk.block_scores(*block_args), "block_score_kernel",
-                  lambda: sk.LAUNCHES["block_score"]),
-        queued_ms(torch, lambda: sk.block_scores(*block_args)),
-        cuda_ms(torch, lambda: sk.block_scores_plain(*block_args), 10),
-        *score_bound_ms(nbytes, Bo * R * P), f"{Bo * R} candidates")
-    del F, block_args
+            if label in topk_cases:
+                held("block_score", label, kind, sk.block_score_topk, sk.block_score_topk_plain,
+                     args, S * (S - 1) // 2 + 1, extra=(topk_k(args),))
+            else:
+                held("block_score", label, kind, sk.block_scores, sk.block_scores_plain, args,
+                     S * (S - 1) // 2 + 1)
+            if label in timed:
+                block_inputs[label] = args
+    for label in timed:
+        args = block_inputs[label]
+        orders, orients = args[2], args[3]
+        (Bo, S), R = orders.shape, orients.shape[0]
+        topk = label in topk_cases
+        # each order gathers the four orientations' values of each of its pairs
+        pi, pj = (torch.from_numpy(a).to(dev) for a in np.triu_indices(S, k=1))
+        base = table_indices(sizes, orders.long(), torch.zeros_like(orders.long()), pi, pj,
+                             SCORE_CP1)
+        gathered = base[:, None] + SCORE_CP1 * torch.arange(4, device=dev)[None, :]
+        k = topk_k(args)
+        nbytes = Bo * S * 4 + R * S * 4 + SCORE_SP * 8 + 4 * distinct(gathered) + 4 \
+            + (k * 20 if topk else Bo * R * 4)
+        per_order, per_cand = sk.block_adds(S, R)
+        ops = Bo * per_order + Bo * R * (per_cand + topk)
+        if topk:
+            fn = lambda: sk.block_score_topk(*args, k)  # noqa: E731
+            plain = lambda: sk.block_score_topk_plain(*args, k)  # noqa: E731
+        else:
+            fn = lambda: sk.block_scores(*args)  # noqa: E731
+            plain = lambda: sk.block_scores_plain(*args)  # noqa: E731
+        form = "halves" if sk.block_halves(S, R) else "direct sums"
+        timing[("block_score", label)] = (
+            cuda_ms(torch, fn, 50),
+            device_ms(torch, fn, ("block_kernel", "topk_merge"),
+                      lambda: sk.LAUNCHES["block_score"]),
+            queued_ms(torch, fn), cuda_ms(torch, plain, 10), *score_bound_ms(nbytes, ops),
+            f"{Bo * R} candidates, {form}; {Bo * R * (S * (S - 1) // 2 + 1)} adds summed directly")
+        if topk:
+            two = queued_ms(torch, lambda: sk.group_argmax(sk.block_scores(*args).reshape(-1), k))
+            print(f"block_score {label} on {CARD}: the two-launch form (block_scores, then "
+                  f"group_argmax) {two} ms on the device with launches queued")
+        else:
+            # the JAX function's formulation in two PyTorch calls, its indices
+            # and one-hot selector built beforehand: a gather, then addmm
+            idx = sk._block_indices(sizes, orders.long(), pi, pj, SCORE_CP1)
+            E = sk._orient_selector(orients.long(), pi, pj, torch.float32)
+            F, c0 = args[0], args[4]
+            library[("block_score", label)] = cuda_ms(
+                torch, lambda: torch.addmm(c0, F[idx].reshape(Bo, -1), E), 20)
+    old = OLD_BLOCK
+    print(f"block_score with the previous kernel ({old['from']}): " + ", ".join(
+        f"{label} {ms} ms on the device" for label, ms in old.items() if label != "from"))
+    del F, block_inputs, args
 
     # -- pair profiles at cmax 128 and 384 (Sp = 56), both plain builds
     for top, cmax in SCORE_SHAPES["profiles"]:
@@ -1374,6 +1439,26 @@ def phase_score_kernels(torch, np, device="cuda"):
             del h, Wm
     del M
 
+    # -- group_topk alone (topk_tiles, then topk_merge where a group spans
+    # tiles): the mesh path's gathered combo scores (23,040 at k = 64), and
+    # one tile of 64 scores (k = 1), the launch's floor
+    group_topk = {}
+    for N, k in ((23040, 64), (64, 1)):
+        label = f"N={N} k={k}"
+        x = up(rng.integers(0, 2**20, N), np.float32)
+        got, want = sk.group_argmax(x, k), sk._group_argmax(x, k)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"group_argmax {label} differs from the plain version")
+        bound, bound_by = score_bound_ms(N * 4 + k * 20, N)
+        fn = lambda: sk.group_argmax(x, k)  # noqa: E731
+        group_topk[label] = {"ms": cuda_ms(torch, fn, 50), "queued_ms": queued_ms(torch, fn),
+                             "plain_ms": cuda_ms(torch, lambda: sk._group_argmax(x, k), 10),
+                             "bound_ms": bound, "bound_by": bound_by}
+        print(f"group_topk {label} on {CARD}: == plain; {group_topk[label]['ms']:.4f} ms a call, "
+              f"{group_topk[label]['queued_ms']} ms on the device with launches queued, plain "
+              f"{group_topk[label]['plain_ms']:.4f} ms, bound {bound:.6f} ms ({bound_by})")
+    del x
+
     records = {}
     for (name, label), (ms, dev_ms, queued, plain_ms, bound, bound_by, note) in timing.items():
         on_device = "not measured" if dev_ms is None else (
@@ -1384,6 +1469,9 @@ def phase_score_kernels(torch, np, device="cuda"):
               f"(profiler), {in_queue} on the device with launches queued (CUDA events), "
               f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}; {note}), "
               f"{100 * bound / ms:.2f}% of it a call")
+        if (name, label) in library:
+            print(f"  {name} {label}: the JAX function's formulation in PyTorch, two calls (a "
+                  f"gather, then addmm), {library[name, label]:.4f} ms a call")
         old = OLD_PAIR.get(label) if name == "pair_score" else None
         if old:
             print(f"  {name} {label} with the previous kernel ({OLD_PAIR['from']}): "
@@ -1398,12 +1486,14 @@ def phase_score_kernels(torch, np, device="cuda"):
             "replaces": SCORE_REPLACES[name], "max_abs_err": worst[name], "cases": n_cases[name],
             "library_ms": None})
         entry = {"ms": ms, "device_ms": dev_ms, "queued_ms": queued, "plain_ms": plain_ms,
-                 "bound_ms": bound, "bound_by": bound_by}
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": library.get((name, label))}
         if "ms" not in rec:  # the first timed shape is the main path's
             rec.update(entry, shape=label)
         else:
             rec[f"at {label}"] = entry
     records["pair_profiles"]["table_matmul_ms"] = matmul_ms
+    records["combo_score_topk"]["group_topk"] = group_topk
     for run in range(TOPK_SWEEP_RUNS):
         cases = topk_sweep(torch, np, device)
         print(f"top-k sweep {run + 1}/{TOPK_SWEEP_RUNS}: {cases} cases of combo_score_topk and "
@@ -1576,39 +1666,125 @@ def library_bounds():
           f"an EM iteration's _log_gaussian_diag + _m_step at T=D={T} {hmm_ms:.4f} ms ({hmm_by})")
 
 
-def forced_escalation(torch, np, device):
-    """Part 2's brute force (``part2_order.brute_force_best``) over six
+def forced_escalation(torch, np, device, n):
+    """Part 2's brute force (``part2_order.brute_force_best``) over ``n``
     one-bin scaffolds: a one-bin scaffold reads the same in both
-    orientations, so all 64 orientations of an order score exactly alike,
+    orientations, so all 2**n orientations of an order score exactly alike,
     the winner's group holds its ties, the top-k floor (the largest second
     maximum) reaches the exact best, and the decision escalates to the dense
     block scores (``score_batch``).  Returns the decision, the run's
-    escalations and the block kernel's launches."""
+    escalations, the block kernel's launches, the host seconds in
+    ``score_batch`` and in ``cost._decide``, and the scorer."""
     from hic_genome_assembler_tpu_torch.models import part2_order
     from hic_genome_assembler_tpu_torch.ops import cost
     from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
 
     rng = np.random.default_rng(7)
-    m = np.triu(rng.integers(1, 50, (6, 6)).astype(np.float64), 1)
-    scorer = cost.ChromosomeScorer(m + m.T, [1] * 6, device)
+    m = np.triu(rng.integers(1, 50, (n, n)).astype(np.float64), 1)
+    scorer = cost.ChromosomeScorer(m + m.T, [1] * n, device)
+    seconds = {"score_batch": 0.0, "decide": 0.0}
+    originals = {"score_batch": cost.SubsetScorer.score_batch, "decide": cost._decide}
+
+    def timed(key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = originals[key](*args, **kwargs)
+            seconds[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    cost.SubsetScorer.score_batch, cost._decide = timed("score_batch"), timed("decide")
     before = sk.LAUNCHES["block_score"]
-    decision = part2_order.brute_force_best(scorer, list(range(6)), [f"s{i}" for i in range(6)])
-    return decision, scorer.stats.escalations, sk.LAUNCHES["block_score"] - before
+    try:
+        decision = part2_order.brute_force_best(scorer, list(range(n)),
+                                                [f"s{i}" for i in range(n)])
+    finally:
+        cost.SubsetScorer.score_batch, cost._decide = originals.values()
+    return (decision, scorer.stats.escalations, sk.LAUNCHES["block_score"] - before, seconds,
+            scorer)
+
+
+READBACK_REPS = 5                  # timed drains of the escalation's scores, each way
+
+
+def escalation_split(torch, np, scorer):
+    """The S = 8 escalation's dense scores again on ``scorer``'s table: the
+    block launches' device time (``queued_ms``), then their readback to one
+    float64 host array two ways, each timed ``READBACK_REPS`` times in turns
+    on the host clock: ``cost._drain_rows`` (one pinned buffer, one
+    synchronisation) and a pageable ``.cpu()`` a chunk (the port's
+    readback before it); both must give the same bytes.  Returns the three
+    times in ms (the readbacks' means)."""
+    from hic_genome_assembler_tpu_torch.ops import cost, perms
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    sub = scorer.full()
+    orders, orients = perms.order_batch(scorer.S), perms.orient_batch(scorer.S)
+    Bo, R, chunk = orders.shape[0], orients.shape[0], 2048
+    dev = sub.device
+    orients_d = torch.from_numpy(np.array(orients, np.int32)).to(dev)
+    chunks = [torch.from_numpy(np.array(orders[o:o + chunk], np.int32)).to(dev)
+              for o in range(0, Bo, chunk)]
+
+    def launch():
+        return [sk.block_scores(sub._F_flat, sub._sizes_d, c, orients_d, sub._c0_d)
+                for c in chunks]
+
+    device = queued_ms(torch, launch, iters=5)
+    parts = [(o * chunk, c.shape[0], t) for o, (c, t) in enumerate(zip(chunks, launch()))]
+    torch.cuda.synchronize()
+
+    def pageable():
+        out = np.empty((Bo, R), dtype=np.float64)
+        for ofs, n, t in parts:
+            out[ofs:ofs + n] = t.cpu().numpy()[:n]
+        return out
+
+    def pinned():
+        return cost._drain_rows(parts, (Bo, R))
+
+    check(np.array_equal(pageable(), pinned()), "the pinned drain differs from the pageable copies")
+    times = {pageable: [], pinned: []}
+    for rep in range(READBACK_REPS):
+        for fn in ((pageable, pinned) if rep % 2 == 0 else (pinned, pageable)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[fn].append(1e3 * (time.perf_counter() - t0))
+    return device, float(np.mean(times[pinned])), float(np.mean(times[pageable]))
 
 
 def phase_escalation(torch, np):
-    """The forced escalation on the card and on the CPU: the same decision,
-    an escalation on both, and the block kernel launched on the card;
-    returns its launches."""
-    reset_launches()
-    got = forced_escalation(torch, np, torch.device("cuda"))
-    want = forced_escalation(torch, np, torch.device("cpu"))
-    print(f"forced escalation: decision {got[0]} on the card, {want[0]} on the CPU; "
-          f"{got[1]} escalations; block_score launched {got[2]} times")
-    check(got[0] == want[0], "the forced escalation decided otherwise on the card")
-    check(got[1] > 0 and want[1] > 0, "the forced escalation did not escalate")
-    check(got[2] > 0, "the forced escalation launched block_score no time")
-    return got[2]
+    """The forced escalation over six and over eight one-bin scaffolds, on the
+    card and on the CPU: the same decision, an escalation on both, and the
+    block kernel launched on the card (the counts set to 0 before each run).
+    At eight, the escalation's split: its block launches on the device, its
+    readback, and the host's dense decision.  Returns the block kernel's
+    launches in each run and the split."""
+    launches, split = {}, {}
+    for n in (6, 8):
+        reset_launches()
+        got = forced_escalation(torch, np, torch.device("cuda"), n)
+        launches[n] = got[2]
+        want = forced_escalation(torch, np, torch.device("cpu"), n)
+        print(f"forced escalation over {n} one-bin scaffolds ({math.factorial(n) // 2} x {2 ** n} "
+              f"candidates): decision {got[0]} on the card, "
+              f"{want[0]} on the CPU; {got[1]} escalations; block_score launched {got[2]} times")
+        check(got[0] == want[0], f"the forced escalation over {n} decided otherwise on the card")
+        check(got[1] > 0 and want[1] > 0, f"the forced escalation over {n} did not escalate")
+        check(got[2] > 0, f"the forced escalation over {n} launched block_score no time")
+        if n == 8:
+            device, pinned, pageable = escalation_split(torch, np, got[4])
+            split = {"block_score_device_ms": device, "readback_ms": pinned,
+                     "readback_pageable_ms": pageable,
+                     "score_batch_s": got[3]["score_batch"], "decide_s": got[3]["decide"]}
+            print(f"escalation split over 8 on {CARD}: block_score's {launches[8]} launches "
+                  f"{device} ms on the device (launches queued); readback to host f64 "
+                  f"{pinned:.3f} ms pinned, one synchronisation ({pageable:.3f} ms with a "
+                  f"pageable .cpu() a chunk, the port's readback before); the run's score_batch "
+                  f"{got[3]['score_batch']:.4f} s and dense _decide {got[3]['decide']:.4f} s on "
+                  "the host clock")
+    return launches, split
 
 
 def phase_device_mode(torch, np, workdir, paths, resolution, exact_cuts):
@@ -1861,6 +2037,7 @@ def phase_ep(workdir, main_dir, paths, resolution):
 
 
 def main():
+    t0 = time.time()
     import torch
 
     phase_device(torch)
@@ -1883,7 +2060,7 @@ def main():
         for name, replay in phase_score_replay(torch, np, score_inputs).items():
             score_records[name]["replay"] = replay
         del score_inputs
-        escalation_launches = phase_escalation(torch, np)
+        escalation_launches, escalation = phase_escalation(torch, np)
         hmm_launches = phase_hmm_path(torch, hmm_dir)
         # the rank-count record keeps phase 4's count; phase 7 checks its own
         phase_device_mode(torch, np, dev_dir, paths, resolution, exact_cuts)
@@ -1898,11 +2075,16 @@ def main():
         rec["launches"] = hmm_launches[rec["name"]]
     for name, rec in score_records.items():
         # each kernel's launches come from its path: phase 4's 16K run, or
-        # (block_score, which runs on escalation only) phase 5b's forced one
-        rec["launches"] = escalation_launches if name == "block_score" else scoring[name]
+        # (block_score, which runs on escalation only) phase 5b's forced ones
+        rec["launches"] = sum(escalation_launches.values()) if name == "block_score" \
+            else scoring[name]
         rec.update(main_path_launches=scoring[name], mesh_launches=mesh_scoring[name],
                    ep_launches=[counts[name] for counts in ep_launches])
     score_records["combo_score_topk"]["mesh_group_argmax_launches"] = mesh_scoring["group_argmax"]
+    score_records["block_score"].update(
+        escalation_launches={f"n={n}": c for n, c in escalation_launches.items()},
+        escalation_split=escalation)
+    print(f"smoke: every phase passed in {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [record] + hmm_records
                       + [score_records[name] for name in SCORE_REPLACES]}))
     print(json.dumps({"ok": True, "device": {

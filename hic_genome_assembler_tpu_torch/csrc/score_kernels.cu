@@ -8,8 +8,7 @@
 //   combo_score_topk  _combo_score_kernel / _combo_score_topk_kernel (:382-399)
 //                     with the group epilogue _group_argmax (:251-270)
 //   group_topk        _group_argmax alone (scores gathered from a mesh's blocks)
-//   block_score       _block_score_kernel (:203-230); its top-k form
-//                     _block_score_topk_kernel (:233-248) is group_topk of it
+//   block_score       _block_score_kernel / _block_score_topk_kernel (:203-248)
 //   pair_score        _pair_score_kernel (:402-417)
 //
 // Shared conventions.  F is the float32 table F[row, delta] of one scaffold
@@ -23,9 +22,8 @@
 // the matrix) is NaN.  Every entry point launches on `stream`, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 //
-// block_score is the first, simple form: no TMA, no tensor cores, no vector
-// loads.  pair_profiles, combo_score_topk and pair_score are redesigned for
-// the card (their notes below).
+// Every kernel here is designed for the card (the notes below); none uses
+// TMA or the tensor cores.
 
 #include <algorithm>
 #include <cmath>
@@ -292,6 +290,13 @@ __device__ __forceinline__ Top2T<I> merge(const Top2T<I>& a, const Top2T<I>& b) 
   return {w.v1, fmaxf(w.v2, l.v1), w.i1};
 }
 
+// merge(x, {v, -inf, i}) where x is empty or i is above x.i1: the
+// candidate wins an empty x, else unless v <= x.v1 (NaN wins, as in merge).
+__device__ __forceinline__ Top2L push(const Top2L& x, float v, int32_t i) {
+  const bool wins = !(v <= x.v1) || x.i1 == INT32_MAX;
+  return {wins ? v : x.v1, wins ? fmaxf(-INFINITY, x.v1) : fmaxf(x.v2, v), wins ? i : x.i1};
+}
+
 __device__ __forceinline__ int32_t shfl_xor(int32_t v, int o) {
   return __shfl_xor_sync(kFull, v, o);
 }
@@ -423,6 +428,20 @@ __device__ __forceinline__ float combo_sum(const float* values, uint32_t m, int 
   return acc;
 }
 
+// Masks of orientation rows [r0, r1), by the whole block: bit q is row r's
+// flag q, bit 31 marks a flag other than 0 or 1.
+__device__ __forceinline__ void build_masks(const int32_t* __restrict__ orients, int S, int r0,
+                                            int r1, uint32_t* masks) {
+  for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+    uint32_t m = 0;
+    for (int q = 0; q < S; ++q) {
+      const int32_t f = orients[static_cast<int64_t>(r) * S + q];
+      m |= (f & ~1) ? 0x80000000u : static_cast<uint32_t>(f) << q;
+    }
+    masks[r - r0] = m;
+  }
+}
+
 template <int kS, bool kTopk>
 __global__ void __launch_bounds__(kThreads)
 combo_kernel(const float* __restrict__ F, int64_t f_numel, const int64_t* __restrict__ idx4,
@@ -443,14 +462,7 @@ combo_kernel(const float* __restrict__ F, int64_t f_numel, const int64_t* __rest
   for (int r0 = 0; r0 < R; r0 += kComboMaskChunk) {
     const int r1 = min(R, r0 + kComboMaskChunk);
     __syncthreads();  // the previous chunk's masks have been read
-    for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-      uint32_t m = 0;
-      for (int q = 0; q < S; ++q) {
-        const int32_t f = orients[static_cast<int64_t>(r) * S + q];
-        m |= (f & ~1) ? 0x80000000u : static_cast<uint32_t>(f) << q;
-      }
-      masks[r - r0] = m;
-    }
+    build_masks(orients, S, r0, r1, masks);
     __syncthreads();
     if (lo >= real_hi) continue;
     for (int64_t b = lo / R + warp, b_last = (real_hi - 1) / R; b <= b_last; b += kComboWarps) {
@@ -528,79 +540,320 @@ cudaError_t launch_combo(const float* F, int64_t f_numel, const int64_t* idx4, i
 // ---------------------------------------------------------------------------
 // block_score
 //
-// Per order b of S ids (ids may repeat): offsets from the sizes prefix, the
-// P*4 values fv[p*4 + e] = F[((s_i*Sp + s_j)*4 + e)*(C+1) + offs_j - offs_i]
-// for every position pair p = (i < j), then for every orientation row r
-// cost[b, r] = sum_p fv[p*4 + e(r, p)] + c0.
+// Replaces _block_score_kernel and _block_score_topk_kernel
+// (hic_genome_assembler_tpu/ops/cost.py:203-248).  Per order b of S ids (ids
+// may repeat): offsets from the sizes prefix, the 4P values
+// fv[4p + e] = F[((s_i*Sp + s_j)*4 + e)*(C+1) + offs_j - offs_i] of the
+// position pairs p = (i < j), and for every orientation row r
+// cost[b, r] = sum_p fv[4p + e(r, p)] + c0, with e(r, p) = 2*orients[r, i] +
+// orients[r, j].  k = 0: every score into costs [Bo, R]; k > 0: the group
+// top-k of the scores, as combo_score_topk gives it, and no score reaches
+// device memory.  NaN for an order with an id outside [0, Sp), a negative
+// size or sizes that reach C + 1, and for a row with a flag other than 0 or 1.
 //
-// What bounds it on this card: the gathers.  Each order reads P*4 scattered
-// table values, and every orientation row reuses them; the XLA program
-// fetches them once too and applies the orientation rows as a one-hot [P*4, R]
-// matrix product.  Here one block owns one order: it gathers its P*4 values
-// into shared memory, and each thread sums one orientation row's P selected
-// values, its selector computed from the row's bits: no one-hot matrix, no
-// matrix product.
+// Its callers.  Part 2's dense escalation scores S = 8 orders in grid
+// launches of 2,048 orders x 256 orientations (cost.score_batch); the top-k
+// form serves the non-combo path, which part 2 reaches only for a
+// chromosome of one scaffold (S = 1, 2 candidates), since nScaffolds is at
+// most 8 and a brute-force order's ids are distinct.
+//
+// What bounds it on this card.  The grid form writes 4 bytes a candidate
+// (2.1 MB a 2,048 x 256 launch) and reads a few bytes an order: bytes.  The
+// top-k form writes 3k values: the adds, P a candidate summed directly.
+// The XLA program gathers [Bo, P, 4] values into device memory and applies
+// the orientations as a one-hot [4P, R] matrix product.
+//
+// The design (combo_kernel's, with the order's own gather).  A block of 8
+// warps owns `tile` candidates: 8 whole orders for k = 0, one a warp, and
+// for k > 0 a range of TOPK_TILE inside one group (clipped as in
+// combo_kernel), which a warp walks an order at a time.  The block builds the
+// orientation rows' bit masks once, in chunks of kComboMaskChunk rows, and
+// the (i, j) of each pair p once.  A warp takes whole orders: lanes q < S
+// load the ids and sizes and a shuffle scan gives the offsets (no thread
+// walks the order alone); the warp gathers the 4P values into its slice of
+// shared memory, then its lanes score orientations.  Two sums:
+//  - direct: sum_p fv[4p + e(r, p)], p ascending (combo_sum), P lookups;
+//  - halves (S <= 10, where the rule in score_kernels.block_halves picks
+//    it): with A = positions [0, a = S/2) and B = the rest, the warp first
+//    builds TB[bits_B], the sums of the pairs inside B, and X_j[bits_A,
+//    b_j], the pairs (i in A, j) of each j in B, X_a with the pairs inside A
+//    added (at S = 8: 16 + 4 x 32 floats); a score is then
+//    TB + sum_{j in B} X_j + c0, S - S/2 + 1 lookups.  Every score is the
+//    same P non-negative terms plus c0 grouped otherwise, so integer tables
+//    stay exact and floats within sum_bound(P + 1).
+// The tables are at most 32 floats for TB and 64 a cross row, so the lanes'
+// reads of one table never conflict.  k = 0 stores float4s of four
+// orientations a lane where R is a multiple of 4 (each row 16-byte aligned),
+// else one float a lane; k > 0 merges each score into the lane's (max,
+// argmax, second) as combo_kernel does (push, when the masks fit one chunk
+// and a lane's indices ascend), folded by topk_merge when a group spans
+// blocks.  A warp with several orders loads its next order's ids while it
+// scores the current one.
+//
+// What was measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6, with
+// tools/block_kernel_turns.py): the escalation's 2,048 x 256 launch takes
+// 0.0064 ms on the device against PR 5's one-block-an-order kernel's
+// 0.0175 (0.0079 with the direct sums), and 20,160 x 256 in one launch
+// 0.0304 against 0.1151 (0.0452 direct).
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockThreads = 128;
+constexpr int kBlockWarps = kThreads / 32;
+constexpr int kHalvesMaxS = 10;  // the halves split's tables: 32 + 5 x 64 floats at S = 10
 
-__global__ void __launch_bounds__(kBlockThreads)
-block_score_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict__ sizes,
-                   int Sp, const int32_t* __restrict__ orders, int S,
-                   const int32_t* __restrict__ orients, int R, const float* __restrict__ c0,
-                   float* __restrict__ costs) {
-  const int P = S * (S - 1) / 2;
-  float* fv = reinterpret_cast<float*>(dyn_smem);              // [P * 4]
-  uint32_t* masks = reinterpret_cast<uint32_t*>(fv + 4 * P);   // [R]
-  int32_t* ids = reinterpret_cast<int32_t*>(masks + R);        // [S]
-  int32_t* offs = ids + S;                                      // [S]
-  __shared__ int bad_order;
-  const int64_t b = blockIdx.x;
-  if (threadIdx.x == 0) {
-    int64_t o = 0;
-    int bad = 0;
-    for (int q = 0; q < S; ++q) {
-      const int32_t id = orders[b * S + q];
-      bad |= id < 0 || id >= Sp;
-      ids[q] = bad ? 0 : id;
-      offs[q] = static_cast<int32_t>(o);
-      o += bad ? 0 : sizes[ids[q]];
-      bad |= o >= Cp1;
-    }
-    bad_order = bad;
+// Floats of the halves tables TB [2^b] and X [b][2^(a+1)] at S positions.
+__host__ __device__ constexpr int halves_entries(int S) {
+  return (1 << (S - S / 2)) + (S - S / 2) * (2 << (S / 2));
+}
+
+// A warp slice of the block kernel's shared memory: ids [32], offsets [32],
+// values [4P], halves tables.
+__host__ __device__ constexpr int block_warp_words(int S) {
+  return 64 + 2 * S * (S - 1) + (S <= kHalvesMaxS ? halves_entries(S) : 0);
+}
+
+__device__ __forceinline__ constexpr int pair_index(int i, int j, int S) {
+  return i * (2 * S - i - 1) / 2 + (j - i - 1);
+}
+
+// One warp: the ids (lane q < S holds id q of the order) and exclusive
+// size offsets of an order into ids/offs, and whether the order breaks the
+// layout (in every lane).
+__device__ __forceinline__ bool load_order(int32_t id, int S, const int64_t* __restrict__ sizes,
+                                           int Sp, int64_t Cp1, int32_t* ids, int32_t* offs,
+                                           int lane) {
+  int64_t sz = 0;
+  bool bad = false;
+  if (lane < S) {
+    bad = id < 0 || id >= Sp;
+    sz = bad ? 0 : __ldg(sizes + id);
+    bad |= sz < 0;
   }
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    uint32_t m = 0;
-    for (int q = 0; q < S; ++q) {
-      const int32_t f = orients[static_cast<int64_t>(r) * S + q];
-      m |= (f & ~1) ? 0x80000000u : static_cast<uint32_t>(f) << q;
-    }
-    masks[r] = m;
+  int64_t incl = sz;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int64_t u = __shfl_up_sync(kFull, static_cast<long long>(incl), o);
+    if (lane >= o) incl += u;
   }
-  __syncthreads();
-  for (int q = threadIdx.x; q < 4 * P; q += blockDim.x) {
-    int p = q >> 2, i = 0, row_len = S - 1;
-    while (p >= row_len) {
-      p -= row_len;
-      ++i;
-      --row_len;
-    }
-    const int j = i + 1 + p;
-    const int64_t row = (static_cast<int64_t>(ids[i]) * Sp + ids[j]) * 4 + (q & 3);
-    fv[q] = bad_order ? 0.0f : F[row * Cp1 + (offs[j] - offs[i])];
+  bad |= lane < S && incl >= Cp1;
+  if (lane < S) {
+    ids[lane] = id;
+    offs[lane] = static_cast<int32_t>(incl - sz);
   }
-  __syncthreads();
-  const float c0v = *c0;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const uint32_t m = masks[r];
+  return __any_sync(kFull, bad);
+}
+
+// One warp: values[q] = F[((ids_i*Sp + ids_j)*4 + e)*Cp1 + offs_j - offs_i]
+// for q = 4p + e, the loads of a lane issued before its stores.
+template <int kS>
+__device__ __forceinline__ void gather_values(const float* __restrict__ F, int64_t Cp1, int Sp,
+                                              const uint32_t* pairs, const int32_t* ids,
+                                              const int32_t* offs, int P, float* values,
+                                              int lane) {
+  constexpr int kIters = kS > 0 ? (2 * kS * (kS - 1) + 31) / 32 : 4;
+  for (int q0 = 0; q0 < 4 * P; q0 += 32 * kIters) {
+    float v[kIters];
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int q = q0 + lane + 32 * it;
+      v[it] = 0.0f;
+      if (q < 4 * P) {
+        const uint32_t pr = pairs[q >> 2];
+        const int i = pr >> 8, j = pr & 255;
+        const int64_t row = (static_cast<int64_t>(ids[i]) * Sp + ids[j]) * 4 + (q & 3);
+        v[it] = __ldg(F + row * Cp1 + (offs[j] - offs[i]));
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int q = q0 + lane + 32 * it;
+      if (q < 4 * P) values[q] = v[it];
+    }
+  }
+}
+
+// One warp: the halves tables of an order's values (see the note above).
+// TB's entries go to lanes t < 2^b; X's entries u = jj*2^(a+1) + 2*mA + b_j
+// to lanes u mod 32, in unrolled steps, so that jj, and with it each term's
+// pair, is a constant of the step wherever 2^(a+1) >= 32.
+template <int kS>
+__device__ __forceinline__ void build_halves(const float* values, float* tabs, int lane) {
+  constexpr int a = kS / 2, b = kS - a, nB = 1 << b, nX = 2 << a;
+  for (int t = lane; t < nB; t += 32) {  // TB[t]: the pairs inside B
     float acc = 0.0f;
-    int p = 0;
-    for (int i = 0; i < S - 1; ++i) {
-      const int ei = ((m >> i) & 1) * 2;
-      for (int j = i + 1; j < S; ++j, ++p) acc += fv[4 * p + ei + ((m >> j) & 1)];
-    }
-    costs[b * R + r] = (bad_order || (m >> 31)) ? NAN : acc + c0v;
+#pragma unroll
+    for (int i = a; i < kS; ++i)
+#pragma unroll
+      for (int j = i + 1; j < kS; ++j)
+        acc += values[4 * pair_index(i, j, kS) + ((t >> (i - a)) & 1) * 2 + ((t >> (j - a)) & 1)];
+    tabs[t] = acc;
   }
+#pragma unroll
+  for (int step = 0; step < (b * nX + 31) / 32; ++step) {
+    const int u = lane + 32 * step;
+    if (u < b * nX) {  // X_j[mA, b_j]: the pairs (i in A, j); X_a also the pairs inside A
+      const int jj = u / nX, mA = (u % nX) >> 1, bj = u & 1;
+      float acc = 0.0f;
+#pragma unroll
+      for (int i = 0; i < a; ++i)
+        acc += values[4 * pair_index(i, a + jj, kS) + ((mA >> i) & 1) * 2 + bj];
+      if (jj == 0) {
+#pragma unroll
+        for (int i = 0; i < a; ++i)
+#pragma unroll
+          for (int i2 = i + 1; i2 < a; ++i2)
+            acc += values[4 * pair_index(i, i2, kS) + ((mA >> i) & 1) * 2 + ((mA >> i2) & 1)];
+      }
+      tabs[nB + u] = acc;
+    }
+  }
+}
+
+// TB[bits_B] + sum_{j in B} X_j[bits_A, b_j] of a row's mask m.
+template <int kS>
+__device__ __forceinline__ float halves_sum(const float* tabs, uint32_t m) {
+  constexpr int a = kS / 2, b = kS - a, nA = 1 << a, nB = 1 << b;
+  float acc = tabs[(m >> a) & (nB - 1)];
+  const float* X = tabs + nB + 2 * (m & (nA - 1));
+#pragma unroll
+  for (int jj = 0; jj < b; ++jj) acc += X[jj * 2 * nA + ((m >> (a + jj)) & 1)];
+  return acc;
+}
+
+template <int kS, bool kTopk>
+__global__ void __launch_bounds__(kThreads)
+block_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict__ sizes, int Sp,
+             const int32_t* __restrict__ orders, int64_t N, const int32_t* __restrict__ orients,
+             int R, int S_arg, int halves, int vec4, const float* __restrict__ c0, int64_t G,
+             int64_t tile, Top2* __restrict__ parts, float* __restrict__ costs,
+             float* __restrict__ vals, int64_t* __restrict__ idx, float* __restrict__ second) {
+  const int S = kS > 0 ? kS : S_arg;
+  const int P = S * (S - 1) / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(dyn_smem);  // [min(R, kComboMaskChunk)]
+  uint32_t* pairs = masks + min(R, kComboMaskChunk);         // [P]: i << 8 | j
+  int32_t* ids = reinterpret_cast<int32_t*>(pairs + P) + warp * block_warp_words(S);
+  int32_t* offs = ids + 32;
+  float* values = reinterpret_cast<float*>(offs + 32);       // [4P]
+  float* tabs = values + 4 * P;                               // the halves tables
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    int i = 0, rest = p;
+    while (rest >= S - 1 - i) rest -= S - 1 - i++;
+    pairs[p] = static_cast<uint32_t>(i) << 8 | static_cast<uint32_t>(i + 1 + rest);
+  }
+  const int64_t g = blockIdx.y;
+  const int64_t lo = kTopk ? g * G + blockIdx.x * tile : blockIdx.x * tile;
+  const int64_t hi = min64(lo + tile, kTopk ? (g + 1) * G : N);
+  const int64_t real_hi = min64(hi, N);  // [real_hi, hi): the last group's padding
+  const float c0v = *c0;
+  Top2L x = top2l_empty();
+  for (int r0 = 0; r0 < R; r0 += kComboMaskChunk) {
+    const int r1 = min(R, r0 + kComboMaskChunk);
+    __syncthreads();  // the previous chunk's masks have been read
+    build_masks(orients, S, r0, r1, masks);
+    __syncthreads();
+    if (lo >= real_hi) continue;
+    // the warp's orders b, b + 8, ...; each one's ids are loaded while the
+    // order before it is scored
+    const int64_t b_last = (real_hi - 1) / R;
+    int32_t next_id = 0;
+    if (lo / R + warp <= b_last && lane < S) next_id = __ldg(orders + (lo / R + warp) * S + lane);
+    for (int64_t b = lo / R + warp; b <= b_last; b += kBlockWarps) {
+      const int32_t id = next_id;
+      if (b + kBlockWarps <= b_last && lane < S)
+        next_id = __ldg(orders + (b + kBlockWarps) * S + lane);
+      const int64_t nb = b * R;
+      const int rl = static_cast<int>(max64(r0, lo - nb));
+      const int rh = static_cast<int>(min64(r1, real_hi - nb));
+      if (rl >= rh) continue;  // the order has no candidate of this chunk in the range
+      const bool bad = load_order(id, S, sizes, Sp, Cp1, ids, offs, lane);
+      __syncwarp();
+      if (!bad) {
+        gather_values<kS>(F, Cp1, Sp, pairs, ids, offs, P, values, lane);
+        __syncwarp();
+        if constexpr (kS > 0) {
+          if (halves) {
+            build_halves<kS>(values, tabs, lane);
+            __syncwarp();
+          }
+        }
+      }
+      // the scores of the order's rows [rl, rh), `sum` giving a row's P-term
+      // sum; one instance each for a bad order, the halves and the direct sums
+      auto score_rows = [&](auto sum) {
+        auto score = [&](uint32_t m) -> float { return (m >> 31) ? NAN : sum(m) + c0v; };
+        if constexpr (kTopk) {
+          if (R <= kComboMaskChunk) {  // one chunk: a lane's indices ascend, push is merge
+            for (int r = r0 + lane; r < rh; r += 32)
+              if (r >= rl) x = push(x, score(masks[r - r0]), static_cast<int32_t>(nb + r - lo));
+          } else {
+            for (int r = r0 + lane; r < rh; r += 32)
+              if (r >= rl)
+                x = merge(x, Top2L{score(masks[r - r0]), -INFINITY,
+                                   static_cast<int32_t>(nb + r - lo)});
+          }
+        } else if (vec4) {  // whole orders, R a multiple of 4: rl = r0, rh = r1
+          for (int r = r0 + 4 * lane; r < rh; r += 128) {
+            const uint4 m = *reinterpret_cast<const uint4*>(masks + (r - r0));
+            *reinterpret_cast<float4*>(costs + nb + r) =
+                make_float4(score(m.x), score(m.y), score(m.z), score(m.w));
+          }
+        } else {
+          for (int r = r0 + lane; r < rh; r += 32) costs[nb + r] = score(masks[r - r0]);
+        }
+      };
+      if (bad) {
+        score_rows([](uint32_t) { return NAN; });
+      } else if (kS > 0 && halves) {
+        if constexpr (kS > 0) score_rows([&](uint32_t m) { return halves_sum<kS>(tabs, m); });
+      } else {
+        score_rows([&](uint32_t m) { return combo_sum<kS>(values, m, S); });
+      }
+      __syncwarp();  // the values and tables are read before the next order's
+    }
+  }
+  if constexpr (!kTopk) return;
+  if (threadIdx.x == 0 && real_hi < hi)
+    x = merge(x, Top2L{-INFINITY, -INFINITY, static_cast<int32_t>(max64(lo, N) - lo)});
+  x = block_merge(x, top2l_empty());
+  if (threadIdx.x != 0) return;
+  const Top2 w{x.v1, x.v2, lo + x.i1};
+  if (gridDim.x == 1) {
+    vals[g] = w.v1;
+    idx[g] = w.i1;
+    second[g] = w.v2;
+  } else {
+    parts[g * gridDim.x + blockIdx.x] = w;
+  }
+}
+
+template <int kS>
+cudaError_t launch_block(const float* F, int64_t Cp1, const int64_t* sizes, int Sp,
+                         const int32_t* orders, int64_t Bo, int S, const int32_t* orients, int R,
+                         int halves, const float* c0, int k, int64_t tile, Top2* parts,
+                         float* costs, float* vals, int64_t* idx, float* second,
+                         cudaStream_t stream) {
+  const int64_t N = Bo * R;
+  const size_t smem = sizeof(uint32_t) * (std::min(R, kComboMaskChunk) + S * (S - 1) / 2 +
+                                          kBlockWarps * block_warp_words(S));
+  const int64_t G = k > 0 ? (N + k - 1) / k : N;
+  const int64_t tiles = (G + tile - 1) / tile;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const int vec4 = R % 4 == 0 && reinterpret_cast<uintptr_t>(costs) % 16 == 0;
+  const void* kernel = k > 0 ? reinterpret_cast<const void*>(&block_kernel<kS, true>)
+                             : reinterpret_cast<const void*>(&block_kernel<kS, false>);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (k == 0) {
+    block_kernel<kS, false><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
+        F, Cp1, sizes, Sp, orders, N, orients, R, S, halves, vec4, c0, G, tile, parts, costs,
+        vals, idx, second);
+    return cudaGetLastError();
+  }
+  block_kernel<kS, true><<<dim3(static_cast<unsigned>(tiles), k), kThreads, smem, stream>>>(
+      F, Cp1, sizes, Sp, orders, N, orients, R, S, halves, vec4, c0, G, tile, parts, costs, vals,
+      idx, second);
+  if (tiles > 1)
+    topk_merge<<<k, 32, 0, stream>>>(parts, static_cast<int>(tiles), vals, idx, second);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -802,18 +1055,34 @@ extern "C" int group_topk(const float* x, int64_t N, int k, int64_t tile, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// orders: int32 [Bo, S]; orients: int32 [R, S]; costs: float32 [Bo, R].
+// Block scores of Bo orders (int32 [Bo, S]) x R orientation rows (int32
+// [R, S]), `tile` candidates a block.  k == 0: every score into costs
+// [Bo, R], tile a multiple of R (whole orders a block).  k > 0: the group
+// top-k into vals/idx/second [k] (parts: as combo_score_topk).  halves = 1
+// sums through the halves tables (2 <= S <= 10), 0 directly.
 extern "C" int block_score(const float* F, int64_t Cp1, const int64_t* sizes, int Sp,
-                           const int32_t* orders, int Bo, int S, const int32_t* orients, int R,
-                           const float* c0, float* costs, cudaStream_t stream) {
-  if (Bo < 1 || S < 1 || S > 31 || R < 1 || Sp < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int P = S * (S - 1) / 2;
-  const size_t smem = sizeof(float) * 4 * P + sizeof(uint32_t) * R + sizeof(int32_t) * 2 * S;
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&block_score_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_score_kernel<<<Bo, kBlockThreads, smem, stream>>>(F, Cp1, sizes, Sp, orders, S, orients,
-                                                          R, c0, costs);
-  return static_cast<int>(cudaGetLastError());
+                           const int32_t* orders, int64_t Bo, int S, const int32_t* orients,
+                           int R, int halves, const float* c0, int k, int64_t tile, void* parts,
+                           float* costs, float* vals, int64_t* idx, float* second,
+                           cudaStream_t stream) {
+  if (Bo < 1 || S < 1 || S > 31 || R < 1 || Sp < 1 || k < 0 || k > 65535 || tile < 1 ||
+      tile > INT32_MAX || (k == 0 && tile % R) || (halves && (S < 2 || S > kHalvesMaxS)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Top2* p = static_cast<Top2*>(parts);
+  switch (S) {
+#define BLOCK_CASE(n)                                                                        \
+  case n:                                                                                   \
+    return static_cast<int>(launch_block<n>(F, Cp1, sizes, Sp, orders, Bo, S, orients, R,   \
+                                            halves, c0, k, tile, p, costs, vals, idx, second, \
+                                            stream));
+    BLOCK_CASE(2) BLOCK_CASE(3) BLOCK_CASE(4) BLOCK_CASE(5) BLOCK_CASE(6) BLOCK_CASE(7)
+    BLOCK_CASE(8) BLOCK_CASE(9) BLOCK_CASE(10)
+#undef BLOCK_CASE
+    default:  // S = 1 or S > 10: direct sums, the loops not unrolled
+      return static_cast<int>(launch_block<0>(F, Cp1, sizes, Sp, orders, Bo, S, orients, R,
+                                              halves, c0, k, tile, p, costs, vals, idx, second,
+                                              stream));
+  }
 }
 
 // cand: int32 [B, 2*W], each row's W ids then its W orientation flags; out: float32 [B].

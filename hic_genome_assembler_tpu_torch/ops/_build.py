@@ -119,8 +119,10 @@ SIGNATURES = {
                          _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
     # x [N], N, k, tile, parts scratch, vals, idx, second
     "group_topk": [_PTR, _I64, _INT, _I64, _PTR, _PTR, _PTR, _PTR, _PTR],
-    # F, C + 1, sizes, Sp, orders [Bo, S], Bo, S, orients [R, S], R, c0, costs [Bo, R]
-    "block_score": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR],
+    # F, C + 1, sizes, Sp, orders [Bo, S], Bo, S, orients [R, S], R, halves, c0, k,
+    # tile, parts scratch, costs [Bo, R], vals, idx, second
+    "block_score": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _INT, _PTR, _INT,
+                    _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
     # F, C + 1, sizes, Sp, cand [B, 2*W], B, W, c0, out [B]
     "pair_score": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR, _PTR],
 }

@@ -15,9 +15,10 @@ exact summation order, and ``_F32_MARGIN`` bounds which candidates must be
 re-scored (``docs/PRECISION.md``).
 
 The device functions are ``ops/score_kernels.py``: on a CUDA device the
-pair profiles, the combo top-k, the block scores and the pair scores are
-hand-written kernels, on the CPU their plain torch versions; the table
-``F = h @ Wm`` is a ``torch.matmul``, as the JAX package left it to XLA.
+pair profiles, the combo top-k, the block scores (and their top-k) and the
+pair scores are hand-written kernels, on the CPU their plain torch
+versions; the table ``F = h @ Wm`` is a ``torch.matmul``, as the JAX
+package left it to XLA.
 The host float64 bookkeeping and the decision rules are copied from the JAX
 module, which imports jax; ``PrecisionStats`` is an object each run creates
 and passes, not a process-wide global.
@@ -183,6 +184,26 @@ def _combo_index(orders: np.ndarray) -> dict:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _drain_rows(parts: Sequence[Tuple[int, int, torch.Tensor]], shape) -> np.ndarray:
+    """The rows ``t[:n]`` of each ``(ofs, n, t)`` at ``out[ofs : ofs + n]``
+    of a host float64 array of ``shape``.  CUDA tensors are copied into one
+    pinned buffer without waiting, and each card's stream is synchronised
+    once at the end, where a pageable ``.cpu()`` a tensor would wait for
+    each."""
+    cuda = [t for _ofs, _n, t in parts if t.device.type == "cuda"]
+    if not cuda:
+        out = np.empty(shape, dtype=np.float64)
+        for ofs, n, t in parts:
+            out[ofs : ofs + n] = t[:n].numpy()
+        return out
+    buf = torch.empty(shape, dtype=cuda[0].dtype, pin_memory=True)
+    for ofs, n, t in parts:
+        buf[ofs : ofs + n].copy_(t[:n], non_blocking=True)
+    for dev in {t.device for t in cuda}:
+        torch.cuda.current_stream(dev).synchronize()
+    return buf.numpy().astype(np.float64)
 
 
 class ChromosomeScorer:
@@ -369,14 +390,12 @@ class SubsetScorer:
         if self.degenerate:
             return np.zeros(Bo * R, dtype=np.float64)
         orients_r = self._rep(self._put(orients, np.int32))
-        out = np.empty((Bo, R), dtype=np.float64)
         handles = []
         for ofs in range(0, Bo, chunk_orders):
             chunk = orders[ofs : ofs + chunk_orders]
             handles.append((ofs, chunk.shape[0], self._block_costs(chunk, orients_r)))
-        for ofs, n_real, scored in handles:
-            out[ofs : ofs + n_real] = _host(scored)[:n_real]
-        return out.reshape(-1)
+        # all chunks launched; one drain reads them back (JAX: one device_get)
+        return _drain_rows(handles, (Bo, R)).reshape(-1)
 
     def score_batch_topk(
         self,
@@ -424,10 +443,17 @@ class SubsetScorer:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], chunk_orders - n_real, axis=0)]
                 )
-            costs = self._block_costs(chunk, orients_r)
-            # groups over the mesh-padded scores, as in the JAX mesh path;
-            # padding rows are dropped in finish
-            handles.extend(_group_argmax(costs.reshape(-1), min(k, chunk.shape[0] * R)))
+            groups = min(k, chunk.shape[0] * R)
+            if self._mesh is None:  # one kernel: the scores never leave it
+                handles.extend(sk.block_score_topk(
+                    self._F_r[0], self._sizes_r[0], self._put(chunk, np.int32), orients_r[0],
+                    self._c0_r[0], groups,
+                ))
+            else:
+                # groups over the mesh-padded scores, as in the JAX mesh path;
+                # padding rows are dropped in finish
+                costs = self._block_costs(chunk, orients_r)
+                handles.extend(_group_argmax(costs.reshape(-1), groups))
             meta.append((ofs, n_real, min(k, n_real * R)))
 
         def finish(host):
@@ -560,6 +586,23 @@ class SubsetScorer:
         out = oracle.cost_function(gathered, self.total)
         self._host_memo[key] = out
         return out
+
+
+def BlockScorer(
+    sub_matrix: np.ndarray,
+    sizes: Sequence[int],
+    device="cuda",
+    dtype=np.float32,
+    mesh: Optional[pm.Mesh] = None,
+    device_sub: Optional[torch.Tensor] = None,
+    stats: Optional["PrecisionStats"] = None,
+) -> SubsetScorer:
+    """Brute-force scorer over the full scaffold set of ``sub_matrix``:
+    ``ChromosomeScorer(...).full()``, as the JAX package's ``BlockScorer``;
+    on the card unless ``device`` names the CPU."""
+    return ChromosomeScorer(
+        sub_matrix, sizes, device, dtype=dtype, device_sub=device_sub, stats=stats, mesh=mesh
+    ).full()
 
 
 # ---------------------------------------------------------------------------

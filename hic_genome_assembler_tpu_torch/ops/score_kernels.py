@@ -10,9 +10,8 @@ which XLA fuses into kernels on the TPU:
 * :func:`combo_score_topk` and :func:`combo_scores` —
   ``_combo_score_topk_kernel`` / ``_combo_score_kernel`` (``:382-399``) with
   the group epilogue ``_group_argmax`` (``:251-270``);
-* :func:`block_scores` — ``_block_score_kernel`` (``:203-230``); its top-k
-  form ``_block_score_topk_kernel`` (``:233-248``) is :func:`group_argmax`
-  of its scores;
+* :func:`block_scores` and :func:`block_score_topk` —
+  ``_block_score_kernel`` / ``_block_score_topk_kernel`` (``:203-248``);
 * :func:`group_argmax` — the group epilogue alone, for scores gathered from
   a mesh's blocks;
 * :func:`pair_scores` — ``_pair_score_kernel`` (``:402-417``).
@@ -59,6 +58,10 @@ PROFILE_STATIC = 2048
 _MAX_GRID_Y = 65535
 _PAIR_MAX_W = 6144         # one warp's slot tables (8 bytes a slot) in 48 KB
 _BLOCK_MAX_S = 31          # a row's orientations as the bits of a uint32
+# the block kernel: the halves split's largest S (its tables' shared memory),
+# and its warps a block (the grid form gives each warp one order)
+BLOCK_HALVES_MAX_S = 10
+BLOCK_WARPS = 8
 
 
 def sum_bound(n_terms, abs_sum):
@@ -485,11 +488,10 @@ def combo_score_topk(F_flat, idx4, cid, orients, c0, k: int):
 # ---------------------------------------------------------------------------
 
 
-def _block_score_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1: int):
-    """Scores all R orientation combos of each order: P*4 gathers per order
-    and one matmul with the one-hot orientation selector [P*4, R]."""
+def _block_indices(sizes, orders, pi, pj, Cp1: int) -> torch.Tensor:
+    """The flat table indices [Bo, P*4] of each order's P*4 values: its
+    pairs' four orientation cells at the pairs' offset differences."""
     Sp = sizes.shape[0]  # id-space stride of the F table (incl. pad slots)
-    Bo, P = orders.shape[0], pi.shape[0]
     sz = sizes[orders]
     offs = torch.cumsum(sz, dim=1) - sz
     s_i, s_j = orders[:, pi], orders[:, pj]              # [Bo, P]
@@ -497,8 +499,13 @@ def _block_score_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1: int):
     pair_base = (s_i * Sp + s_j) * 4                     # [Bo, P]
     idx = (pair_base[:, :, None] + torch.arange(4, device=orders.device)) * Cp1 \
         + delta[:, :, None]                              # [Bo, P, 4]
-    f_vals = F_flat[idx].reshape(Bo, P * 4)
-    return f_vals @ e_onehot + c0
+    return idx.reshape(orders.shape[0], pi.shape[0] * 4)
+
+
+def _block_score_kernel(F_flat, sizes, orders, e_onehot, pi, pj, c0, Cp1: int):
+    """Scores all R orientation combos of each order: P*4 gathers per order
+    and one matmul with the one-hot orientation selector [P*4, R]."""
+    return F_flat[_block_indices(sizes, orders, pi, pj, Cp1)] @ e_onehot + c0
 
 
 def block_scores_plain(F_flat, sizes, orders, orients, c0) -> torch.Tensor:
@@ -509,7 +516,13 @@ def block_scores_plain(F_flat, sizes, orders, orients, c0) -> torch.Tensor:
     return _block_score_kernel(F_flat, sizes, orders.long(), E, pi, pj, c0, Cp1)
 
 
-def _check_block(F_flat, sizes, orders, orients, c0) -> int:
+def block_score_topk_plain(F_flat, sizes, orders, orients, c0, k: int):
+    """Plain torch version of :func:`block_score_topk`."""
+    return _group_argmax(block_scores_plain(F_flat, sizes, orders, orients, c0).reshape(-1), k)
+
+
+def _check_block(F_flat, sizes, orders, orients, c0) -> Tuple[int, int]:
+    """Checks the block wrappers' arguments; returns (C + 1, candidates)."""
     Cp1 = _check_table(F_flat, sizes, c0)
     dev = F_flat.device
     _tensor(orders, "orders", _IDS, 2, dev)
@@ -518,10 +531,51 @@ def _check_block(F_flat, sizes, orders, orients, c0) -> int:
     if orients.shape[1] != S or not 1 <= S <= _BLOCK_MAX_S or R < 1:
         raise ValueError(f"orders {tuple(orders.shape)} and orients {tuple(orients.shape)} need "
                          f"the same 1..{_BLOCK_MAX_S} positions")
-    if 8 * S * (S - 1) + 4 * R + 8 * S > _SMEM_MAX or not 1 <= orders.shape[0] < 2**31:
-        raise ValueError(f"{orders.shape[0]} orders x {R} orientations at S = {S} exceed the "
-                         "block kernel's shared memory or grid")
-    return Cp1
+    n = orders.shape[0] * R
+    if not 1 <= orders.shape[0] < 2**31 or n >= 2**62:
+        raise ValueError(f"{orders.shape[0]} orders x {R} orientations is out of range")
+    return Cp1, n
+
+
+def block_adds(S: int, R: int) -> Tuple[int, int]:
+    """(adds an order, adds a candidate) of the block kernel's sums at S
+    positions and R orientation rows: the halves tables' adds and ``b + 1``
+    (``b = S - S // 2``) where :func:`block_halves` picks them, else 0 and
+    the P + 1 direct adds."""
+    if not block_halves(S, R):
+        return 0, S * (S - 1) // 2 + 1
+    return _halves_build(S), S - S // 2 + 1
+
+
+def _halves_build(S: int) -> int:
+    """The adds of one order's halves tables: TB (the pairs inside B) and
+    the X_j (the pairs (i in A, j), and in X_a those inside A)."""
+    a, b = S // 2, S - S // 2
+    return (2**b * b * (b - 1) + 2 ** (a + 1) * a * (a - 1)) // 2 + b * 2 ** (a + 1) * a
+
+
+def block_halves(S: int, R: int) -> bool:
+    """Whether the block kernel sums through the halves tables (csrc note):
+    for 2 <= S <= ``BLOCK_HALVES_MAX_S``, where the adds the R rows save,
+    ``R * (P - b)``, exceed the tables' adds."""
+    if not 2 <= S <= BLOCK_HALVES_MAX_S:
+        return False
+    return R * (S * (S - 1) // 2 - (S - S // 2)) > _halves_build(S)
+
+
+def _block_launch(Cp1: int, F_flat, sizes, orders, orients, c0, k: int, tile: int, costs=None,
+                  topk=None) -> None:
+    """One ``block_score`` launch on a table of width ``Cp1``: the scores
+    into ``costs`` (k = 0), or the top-k outputs ``(vals, idx, second,
+    parts)``."""
+    vals, idx, second, parts = (None,) * 4 if topk is None else topk
+    ptrs = [None if t is None else t.data_ptr() for t in (parts, costs, vals, idx, second)]
+    Bo, S = orders.shape
+    R = orients.shape[0]
+    lib = _library()
+    _launch("block_score", F_flat.device, lib.block_score,
+            F_flat.data_ptr(), Cp1, sizes.data_ptr(), sizes.shape[0], orders.data_ptr(), Bo, S,
+            orients.data_ptr(), R, int(block_halves(S, R)), c0.data_ptr(), k, tile, *ptrs)
 
 
 def block_scores(F_flat, sizes, orders, orients, c0) -> torch.Tensor:
@@ -529,17 +583,25 @@ def block_scores(F_flat, sizes, orders, orients, c0) -> torch.Tensor:
     offsets from the sizes prefix, ``P*4`` gathers of ``F_flat``, then for
     each orientation row the sum of its P selected values plus ``c0``.
     ``orders`` int32 [Bo, S] (ids may repeat), ``orients`` int32 [R, S]."""
-    Cp1 = _check_block(F_flat, sizes, orders, orients, c0)
+    Cp1, _n = _check_block(F_flat, sizes, orders, orients, c0)
     if not _on_cuda(F_flat):
         return block_scores_plain(F_flat, sizes, orders, orients, c0)
-    Bo, S = orders.shape
-    R = orients.shape[0]
+    Bo, R = orders.shape[0], orients.shape[0]
     costs = torch.empty((Bo, R), dtype=torch.float32, device=F_flat.device)
-    lib = _library()
-    _launch("block_score", F_flat.device, lib.block_score,
-            F_flat.data_ptr(), Cp1, sizes.data_ptr(), sizes.shape[0], orders.data_ptr(), Bo, S,
-            orients.data_ptr(), R, c0.data_ptr(), costs.data_ptr())
+    _block_launch(Cp1, F_flat, sizes, orders, orients, c0, 0, BLOCK_WARPS * R, costs=costs)
     return costs
+
+
+def block_score_topk(F_flat, sizes, orders, orients, c0, k: int):
+    """:func:`group_argmax` of :func:`block_scores` in k groups, fused: the
+    scores never reach device memory.  Returns ``(vals, idx, second)``."""
+    Cp1, n = _check_block(F_flat, sizes, orders, orients, c0)
+    G = _topk_groups(n, k)
+    if not _on_cuda(F_flat):
+        return block_score_topk_plain(F_flat, sizes, orders, orients, c0, k)
+    topk = _topk_outputs(k, G, F_flat.device)
+    _block_launch(Cp1, F_flat, sizes, orders, orients, c0, k, TOPK_TILE, topk=topk)
+    return topk[:3]
 
 
 # ---------------------------------------------------------------------------

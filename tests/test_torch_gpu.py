@@ -507,29 +507,128 @@ def test_combo_topk_kernel_matches_plain(cuda, S, k, kind):
                                                  sk._group_argmax(flat, k)))
 
 
-@pytest.mark.parametrize("kind", ["int", "float"])
-@pytest.mark.parametrize("S,Bo", [(8, 2048), (6, 360), (1, 1)])
-def test_block_scores_kernel_matches_plain(cuda, S, Bo, kind):
-    """The escalation's chunk at S = 8, the main path's S = 6 batch, and a
-    one-scaffold chromosome (no pairs: every score is c0)."""
-    rng = np.random.default_rng(S + Bo)
+def _block_args(cuda, rng, kind, orders, orients):
+    """The 16K run's table (Sp = 56, C + 1 = 769) with ``orders`` of its ids."""
     Sp, Cp1 = 56, 769
     sizes = np.zeros(Sp, dtype=np.int64)
     sizes[: Sp - 1] = rng.integers(1, 14, Sp - 1)
-    ids = rng.permutation(Sp - 1)[:S]
-    orders = ids[perms.order_batch(S)[:Bo]].astype(np.int32)
     F = _score_table(rng, Sp, Cp1, kind, sizes).to(cuda)
-    args = [F, torch.from_numpy(sizes).to(cuda), torch.from_numpy(orders).to(cuda),
-            torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda), _scalar(rng, kind).to(cuda)]
+    return [F, torch.from_numpy(sizes).to(cuda),
+            torch.from_numpy(np.array(orders, dtype=np.int32)).to(cuda),
+            torch.from_numpy(np.array(orients, dtype=np.int32)).to(cuda),
+            _scalar(rng, kind).to(cuda)]
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("S,Bo", [(8, 2048), (8, 20160), (6, 360), (1, 1)])
+def test_block_scores_kernel_matches_plain(cuda, S, Bo, kind):
+    """The escalation's chunk and the whole escalation at S = 8, the main
+    path's S = 6 batch, and a one-scaffold chromosome (no pairs: every score
+    is c0); their top-k in one launch too."""
+    rng = np.random.default_rng(S + Bo)
+    ids = rng.permutation(55)[:S]
+    args = _block_args(cuda, rng, kind, ids[perms.order_batch(S)[:Bo]], perms.orient_batch(S))
+    before = sk.LAUNCHES["block_score"]
     got, again = sk.block_scores(*args), sk.block_scores(*args)
     assert torch.equal(got, again)
     exact = sk.block_scores_plain(args[0].double(), *args[1:4], args[4].double())
     n_terms = S * (S - 1) // 2 + 1
     _close_or_equal(got, sk.block_scores_plain(*args), kind, n_terms, exact)
     k = min(64, got.numel())
-    _topk_matches(sk.group_argmax(got.reshape(-1), k),
-                  sk._group_argmax(sk.block_scores_plain(*args).reshape(-1), k), kind, n_terms,
-                  _group_max(exact, k))
+    _topk_matches(sk.block_score_topk(*args, k), sk.block_score_topk_plain(*args, k), kind,
+                  n_terms, _group_max(exact, k))
+    assert sk.LAUNCHES["block_score"] == before + 3
+
+
+# the block kernel's other shapes: (S, orders, orientation rows: "all" or so
+# many random rows, ids "perm" or "repeat", k)
+_BLOCK_SHAPES = {
+    "S=9 every orientation, 20,160 orders (the non-combo chunk)": (9, 20160, "all", "perm", 64),
+    "S=9 64 random rows": (9, 20160, 64, "perm", 64),
+    "S=8 R=37 (no multiple of 4)": (8, 500, 37, "perm", 7),
+    "S=8 R=100 (a multiple of 4, not 32)": (8, 500, 100, "perm", 64),
+    "S=5 repeated ids": (5, 300, "all", "repeat", 7),
+    "S=10 R=2,100 (two mask chunks)": (10, 40, 2100, "perm", 11),
+    "S=12 (direct sums, loops not unrolled)": (12, 300, 100, "perm", 64),
+    "S=2": (2, 1, "all", "perm", 2),
+}
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("shape,halves", [
+    (shape, halves) for shape, (S, *_rest) in _BLOCK_SHAPES.items()
+    for halves in (True, False) if not halves or S <= sk.BLOCK_HALVES_MAX_S])
+def test_block_kernel_forms_match_plain(cuda, monkeypatch, shape, halves, kind):
+    """Both sums (the halves tables where S allows them, and direct), the
+    grid form (float4 rows where R is a multiple of 4, else scalar) and the
+    top-k form, against the plain versions."""
+    S, Bo, rows, ids_how, k = _BLOCK_SHAPES[shape]
+    monkeypatch.setattr(sk, "block_halves", lambda S, R: halves)
+    rng = np.random.default_rng(S * Bo)
+    if ids_how == "repeat":
+        orders = rng.integers(0, 20, (Bo, S))
+    else:
+        ids = rng.permutation(55)[:S]
+        orders = ids[perms.order_batch(S)[:Bo]] if S <= 9 else np.stack(
+            [rng.permutation(ids) for _ in range(Bo)])
+    orients = perms.orient_batch(S) if rows == "all" else rng.integers(0, 2, (rows, S))
+    args = _block_args(cuda, rng, kind, orders, orients)
+    n_terms = S * (S - 1) // 2 + 1
+    exact = sk.block_scores_plain(args[0].double(), *args[1:4], args[4].double())
+    got = sk.block_scores(*args)
+    _close_or_equal(got, sk.block_scores_plain(*args), kind, n_terms, exact)
+    top, again = sk.block_score_topk(*args, k), sk.block_score_topk(*args, k)
+    assert all(torch.equal(a, b) for a, b in zip(top, again))
+    _topk_matches(top, sk.block_score_topk_plain(*args, k), kind, n_terms, _group_max(exact, k))
+
+
+@pytest.mark.parametrize("tile", [1, 100, 360, 5000])
+@pytest.mark.parametrize("S,k", [(6, 64), (6, 11), (5, 7), (9, 3)])
+def test_block_topk_kernel_blocks_clipped_inside_orders(cuda, monkeypatch, S, k, tile):
+    """Blocks of ``tile`` candidates cut groups and orders at their edges; a
+    group of several blocks goes through the merge launch.  Integer scores:
+    exact."""
+    monkeypatch.setattr(sk, "TOPK_TILE", tile)
+    rng = np.random.default_rng(S * k + tile)
+    ids = rng.permutation(55)[:S]
+    args = _block_args(cuda, rng, "int", ids[perms.order_batch(S)[:600]], perms.orient_batch(S))
+    got = sk.block_score_topk(*args, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, sk.block_score_topk_plain(*args, k)))
+
+
+def test_block_kernel_nan_for_bad_orders_and_flags(cuda, monkeypatch):
+    """An id outside [0, Sp), a negative size or sizes that reach C + 1
+    give NaN for the whole order, a flag other than 0 or 1 for its row; the
+    other scores equal the plain version's."""
+    rng = np.random.default_rng(11)
+    S = 6
+    ids = rng.permutation(50)[:S]
+    orders = ids[perms.order_batch(S)[:40]].copy()
+    orients = np.array(perms.orient_batch(S))
+    orders[3, 2] = 56                                     # past Sp
+    orders[4, 0] = -1
+    orders[5, :] = [50, 51, 52, 53, 54, 55]               # sizes that reach C + 1
+    orders[6, 1] = 54                                     # a negative size
+    orients[5, 1] = 2
+    args = _block_args(cuda, rng, "int", orders, orients)
+    sizes = args[1].cpu().numpy()
+    sizes[50:55] = 200
+    sizes[54] = -3
+    args[1] = torch.from_numpy(sizes).to(cuda)
+    for halves in (True, False):
+        monkeypatch.setattr(sk, "block_halves", lambda S, R, h=halves: h)
+        scores = sk.block_scores(*args).cpu().numpy()
+        bad_rows, bad_cols = [3, 4, 5, 6], [5]
+        assert np.isnan(scores[bad_rows]).all() and np.isnan(scores[:, bad_cols]).all()
+        good = np.ones_like(scores, dtype=bool)
+        good[bad_rows] = False
+        good[:, bad_cols] = False
+        keep = np.setdiff1d(np.arange(40), bad_rows)
+        want = sk.block_scores_plain(args[0], args[1], args[2][keep].contiguous(), args[3],
+                                     args[4]).cpu().numpy()
+        np.testing.assert_array_equal(scores[keep][:, np.setdiff1d(np.arange(64), bad_cols)],
+                                      np.delete(want, bad_cols, axis=1))
+        assert np.isfinite(scores[good]).all()
 
 
 @pytest.mark.parametrize("kind", ["int", "float"])
@@ -646,18 +745,20 @@ def test_combo_kernel_nan_for_bad_combos_and_flags(cuda):
     np.testing.assert_array_equal(np.isnan(scores), np.isnan(want))
 
 
-def test_forced_escalation_on_cuda_equals_cpu(cuda):
-    """Six one-bin scaffolds: every orientation of an order ties exactly, so
-    the brute force escalates to the dense block scores; the card decides
-    as the CPU does, through the block kernel."""
+@pytest.mark.parametrize("n", [6, 8])
+def test_forced_escalation_on_cuda_equals_cpu(cuda, n):
+    """Six or eight one-bin scaffolds: every orientation of an order ties
+    exactly, so the brute force escalates to the dense block scores (at
+    eight, 5,160,960 of them); the card decides as the CPU does, through the
+    block kernel."""
     rng = np.random.default_rng(7)
-    m = np.triu(rng.integers(1, 50, (6, 6)).astype(np.float64), 1)
-    names = [f"s{i}" for i in range(6)]
+    m = np.triu(rng.integers(1, 50, (n, n)).astype(np.float64), 1)
+    names = [f"s{i}" for i in range(n)]
     decisions = {}
     for dev in (cuda, CPU):
-        scorer = cost.ChromosomeScorer(m + m.T, [1] * 6, dev)
+        scorer = cost.ChromosomeScorer(m + m.T, [1] * n, dev)
         before = sk.LAUNCHES["block_score"]
-        decisions[dev.type] = part2_order.brute_force_best(scorer, list(range(6)), names)
+        decisions[dev.type] = part2_order.brute_force_best(scorer, list(range(n)), names)
         assert scorer.stats.escalations > 0
         if dev.type == "cuda":
             assert sk.LAUNCHES["block_score"] > before

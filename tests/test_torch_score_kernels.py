@@ -260,11 +260,13 @@ def _block_inputs(S, how, kind, seed):
     return F, sizes, orders.astype(np.int32), orients.astype(np.int32), _c0(rng, kind), Cp1
 
 
+@pytest.mark.parametrize("topk", ["group_argmax of the scores", "block_score_topk"])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("case", list(_BLOCK_CASES))
-def test_block_scores_equal_jax(case, kind):
+def test_block_scores_equal_jax(case, kind, topk):
     """Full scores and their top-k (the JAX ``_block_score_topk_kernel``),
-    with permuted, repeated and pad ids, k = 64 and a ragged k = 7."""
+    through the group epilogue of the scores or the fused wrapper, with
+    permuted, repeated and pad ids, k = 64 and a ragged k = 7."""
     S, how = _BLOCK_CASES[case]
     F, sizes, orders, orients, c0, Cp1 = _block_inputs(S, how, kind, seed=len(case) + S)
     args = [_t(F), _t(sizes), _t(orders), _t(orients), _t(c0)]
@@ -278,8 +280,9 @@ def test_block_scores_equal_jax(case, kind):
     n_terms = S * (S - 1) // 2 + 1
     _assert_close(got.numpy(), want, kind, n_terms, exact)
     for k in (64, 7):
-        _assert_topk(sk.group_argmax(got.reshape(-1), k),
-                     jax_cost._block_score_topk_kernel(*jargs, Cp1, k), kind, n_terms,
+        ours = sk.group_argmax(got.reshape(-1), k) if topk.startswith("group") else \
+            sk.block_score_topk(*args, k)
+        _assert_topk(ours, jax_cost._block_score_topk_kernel(*jargs, Cp1, k), kind, n_terms,
                      _group_max(exact, k))
 
 

@@ -405,7 +405,7 @@ def _score_args():
              torch.zeros((8, S), dtype=torch.int32), c0)
     block = (F, sizes, torch.zeros((2, S), dtype=torch.int32),
              torch.zeros((8, S), dtype=torch.int32), c0)
-    return {"pair": (F, sizes, cand, c0), "combo": combo, "block": block,
+    return {"pair": (F, sizes, cand, c0), "combo": combo, "block": block, "block_topk": block,
             "profiles": (torch.zeros((3, 3)), sizes, 64)}
 
 
@@ -414,6 +414,8 @@ def _call(kind, args):
 
     if kind == "combo":
         return sk.combo_score_topk(*args, 4)
+    if kind == "block_topk":
+        return sk.block_score_topk(*args, 4)
     return {"pair": sk.pair_scores, "block": sk.block_scores,
             "profiles": sk.pair_profiles}[kind](*args)
 
@@ -438,6 +440,9 @@ _BAD_ARGS = {
     "combo: int64 orientations": ("combo", 3, lambda a: a.long()),
     "block: orients of another width": ("block", 3, lambda a: torch.zeros((8, 2), dtype=torch.int32)),
     "block: S above 31": ("block", 2, lambda a: torch.zeros((2, 32), dtype=torch.int32)),
+    "block top-k: int64 orders": ("block_topk", 2, lambda a: a.long()),
+    "block top-k: orients of another width": ("block_topk", 3,
+                                              lambda a: torch.zeros((8, 2), dtype=torch.int32)),
     "profiles: a matrix that is not square": ("profiles", 0, lambda a: torch.zeros((3, 4))),
     "profiles: cmax past shared memory": ("profiles", 2, lambda a: 20000),
 }
@@ -469,8 +474,11 @@ def test_score_wrappers_check_the_int64_index_range_and_k():
     with pytest.raises(ValueError, match="cuda or cpu"):
         sk.pair_scores(torch.zeros(4 * 9 * 5, device=meta), sizes, cand, c0)
     combo = _score_args()["combo"]
+    block = _score_args()["block"]
     for k in (0, 65536):
         with pytest.raises(ValueError):
             sk.combo_score_topk(*combo, k)
+        with pytest.raises(ValueError):
+            sk.block_score_topk(*block, k)
     with pytest.raises(ValueError):
         sk.group_argmax(torch.zeros((2, 2)), 1)
