@@ -74,8 +74,17 @@ passes or fails the run:
    512 orientations and with 64 random rows, which no caller reaches), with
    the two-launch form and the JAX function's formulation in two PyTorch
    calls (a gather, then addmm: ``library_ms``) timed beside it;
-   ``group_topk`` alone is timed at the mesh path's shape and one tile.  The pair-score batches include one
-   shaped as the sliding window builds it; the previous kernels' times
+   ``group_topk`` alone is timed at the parent's mesh epilogue's shape and
+   one tile.  The mesh epilogue (``mesh_epilogue``) runs at its callers'
+   two shapes, S = 6 (23,040 candidates) and bench.py's build_problem at S =
+   8 (5,160,960), on a virtual (2, 2) mesh of the card: through
+   ``SubsetScorer.score_batch_topk`` (2 combo launches of partial group
+   triples, 1 ``topk_fold``, the selection equal to one device's), then the
+   new form and the parent's (``combo_scores`` a block, ``pm.gather``,
+   ``group_argmax``) bit-equal to each other and to the plain version on an
+   integer table, each timed in turns, whole and its epilogue alone, beside
+   the bytes it moves to the scorer's device and its bound.  The pair-score
+   batches include one shaped as the sliding window builds it; the previous kernels' times
    (``OLD_PAIR``, ``OLD_BLOCK``, from another run) are printed beside them,
    and stay out of the kernels' JSON record.  The
    top-k sweep (``topk_sweep``: 1, 2, 3 and 20+ tiles, ragged groups,
@@ -108,9 +117,10 @@ passes or fails the run:
    against one launch;
 9. mesh path: part 1 then part 2 (``cli.run_parts``) on phase 4's genome
    with a virtual (2, 2) mesh whose positions are all cuda:0; their files
-   must be byte-equal to phase 4's, and the scoring kernels (with the group
-   epilogue on the blocks' gathered scores) launched as
-   ``MESH_SCORE_LAUNCHES`` says.  With
+   must be byte-equal to phase 4's, and the scoring kernels (each combo
+   batch's blocks emitting partial group triples, folded once: no score
+   gathered) launched as ``MESH_SCORE_LAUNCHES`` says, no plain version on
+   the card.  With
    two cards or more, the CLI with -mesh auto over the real cards runs too.
    Output in build/chip_smoke_mesh.log;
 10. EP: two CLI processes (-part2, RANK 0 and 1, WORLD_SIZE 2, a free
@@ -127,8 +137,9 @@ Phase 1 prints the card's nvidia-smi name and power limit, and phases 3,
 torch.profiler is printed only where the trace holds one event for each
 launch the wrapper counted (``device_ms``), else "not measured".  The
 second-to-last stdout line is the kernels' JSON record (each kernel's
-launches from its path: block_score's from the forced escalations, the
-others' from phase 4), the last line {"ok": true, "device": {...}}.
+launches from its path: block_score's from the forced escalations,
+topk_fold's from phase 9's mesh, the others' from phase 4), the last line
+{"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -182,16 +193,18 @@ SCORE_REPLACES = {
     "combo_score_topk": "hic_genome_assembler_tpu/ops/cost.py:382",
     "block_score": "hic_genome_assembler_tpu/ops/cost.py:203",
     "pair_score": "hic_genome_assembler_tpu/ops/cost.py:402",
+    "topk_fold": "hic_genome_assembler_tpu/ops/cost.py:251",
 }
 # the main path's launches are checked for these; block_score runs on escalation only
 # the scoring kernels' launches on the 16K run (29 chromosome groups; they
 # depend on the fixture, not the device): block scores only on escalation
 MAIN_SCORE_LAUNCHES = {"pair_profiles": 29, "combo_score_topk": 29, "block_score": 0,
-                       "pair_score": 1206, "group_argmax": 0}
-# on a (2, 2) mesh each combo and pair launch runs once a data-axis block, and
-# the group epilogue once on each combo batch's gathered scores
+                       "pair_score": 1206, "group_argmax": 0, "topk_fold": 0}
+# on a (2, 2) mesh each combo and pair launch runs once a data-axis block (the
+# combo launches as partial group triples), and the fold once a combo batch;
+# no score is gathered, so group_argmax runs no time
 MESH_SCORE_LAUNCHES = {"pair_profiles": 29, "combo_score_topk": 58, "block_score": 0,
-                       "pair_score": 2412, "group_argmax": 29}
+                       "pair_score": 2412, "group_argmax": 0, "topk_fold": 29}
 FP32_OPS_PER_S = 67e12             # H100 SXM data sheet, f32 outside the tensor cores
 SCORE_SP, SCORE_CP1 = 56, 769      # the 16K run's widest tables: 12,544 rows x 769 columns
 SCORE_W = 56                       # its candidate width (55 scaffolds rounded up to 8)
@@ -380,7 +393,9 @@ def score_launches():
 
 PLAIN_SCORERS = ("pair_profiles_plain", "combo_scores_plain", "combo_score_topk_plain",
                  "block_scores_plain", "block_score_topk_plain", "pair_scores_plain",
-                 "_group_argmax")
+                 "_group_argmax", "combo_score_topk_partials_plain",
+                 "block_score_topk_partials_plain", "_group_partials",
+                 "fold_group_triples_plain")
 
 
 @contextlib.contextmanager
@@ -1292,7 +1307,7 @@ def phase_score_kernels(torch, np, device="cuda"):
             args = [F, idx4, cid, orients, c0]
             held("combo_score_topk", label, kind, sk.combo_score_topk, sk.combo_score_topk_plain,
                  args, P + 1, extra=(64,))
-            # the mesh path: scores of a padded batch, then the group epilogue
+            # the parent's mesh form: scores of a padded batch, then the group epilogue
             pad_cid = torch.cat([cid, cid[-1:].expand(3, -1)]).contiguous()
             scores = held("combo_score_topk", label + " scores, 3 pad rows", kind,
                           sk.combo_scores, sk.combo_scores_plain,
@@ -1494,15 +1509,171 @@ def phase_score_kernels(torch, np, device="cuda"):
             rec[f"at {label}"] = entry
     records["pair_profiles"]["table_matmul_ms"] = matmul_ms
     records["combo_score_topk"]["group_topk"] = group_topk
+    records["topk_fold"] = mesh_epilogue(torch, np, device)
     for run in range(TOPK_SWEEP_RUNS):
         cases = topk_sweep(torch, np, device)
         print(f"top-k sweep {run + 1}/{TOPK_SWEEP_RUNS}: {cases} cases of combo_score_topk and "
               f"group_argmax == plain (1, 2, 3 and 20+ tiles of {sk.TOPK_TILE}, ragged groups, "
               "integer ties)")
     records["combo_score_topk"]["topk_sweep_cases"] = cases * TOPK_SWEEP_RUNS
-    library_bounds()
+    records["pair_profiles"]["library_calls"] = library_bounds(torch, np, device)
     torch.cuda.empty_cache()
     return records
+
+
+# the mesh epilogue's shapes: the 16K run's S = 6 chromosome (360 orders x 64
+# orientations, scaffold sizes as phase 5b's table draws them) and bench.py's
+# build_problem at S = 8 (20,160 x 256, C = 2,048)
+MESH_EPILOGUE_SIZES = {6: None, 8: (512, 384, 320, 256, 224, 160, 128, 64)}
+MESH_EPILOGUE_K = 64
+MESH_EPILOGUE_TURNS = ("parent", "new", "new", "parent")
+
+
+def epilogue_problem(np, S, rng):
+    """A chromosome of S scaffolds: bench.py's build_problem matrix (a
+    distance decay plus noise) over MESH_EPILOGUE_SIZES[S], or sizes drawn
+    as phase 5b's table draws them."""
+    sizes = MESH_EPILOGUE_SIZES[S]
+    sizes = list(sizes) if sizes else [int(c) for c in rng.integers(1, 25, S)]
+    C = sum(sizes)
+    pos = np.arange(C)
+    m = 100.0 / (1.0 + np.abs(pos[:, None] - pos[None, :])) + rng.random((C, C)) * 0.01
+    return np.triu(m) + np.triu(m, 1).T, sizes
+
+
+def mesh_epilogue(torch, np, device="cuda"):
+    """5b: the mesh paths' group top-k at its callers' two shapes (S = 6 and
+    8), on a virtual (2, 2) mesh of the card.  First through
+    ``SubsetScorer.score_batch_topk``: 2 combo launches (each block's partial
+    triples), 1 fold, no ``group_argmax``, and the selection equal to one
+    device's bit for bit.  Then on the scorer's own device inputs with an
+    integer table: the new form (partials a block, the fold) and the parent's
+    (``combo_scores`` a block, ``pm.gather``, ``group_argmax``) bit-equal to
+    each other and to the plain version; each form's device time
+    (``queued_ms``, in turns parent, new, new, parent), whole and its
+    epilogue alone (after the blocks' sums: the fold; the gather and
+    ``group_argmax``), the bytes it moves to the scorer's device, and the
+    bounds; one device's ``combo_score_topk`` beside them.  Returns the fold's
+    kernel record (its main shape: S = 6)."""
+    from hic_genome_assembler_tpu_torch.ops import cost, perms
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+    from hic_genome_assembler_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = pm.make_mesh((2, 2), [dev] * 4)
+    rng = np.random.default_rng(9)
+    k = MESH_EPILOGUE_K
+    shapes, record = {}, None
+    for S in MESH_EPILOGUE_SIZES:
+        m, sizes = epilogue_problem(np, S, rng)
+        local = cost.ChromosomeScorer(m, sizes, dev).full()
+        sharded = cost.ChromosomeScorer(m, sizes, dev, mesh=mesh).full()
+        orders, orients_np = perms.order_batch(S), perms.orient_batch(S)
+        R = len(orients_np)
+        label = f"S={S} {len(orders)}x{R}"
+        before = dict(sk.LAUNCHES)
+        got = sharded.score_batch_topk(orders, orients_np, k=k)
+        launched = {name: sk.LAUNCHES[name] - before[name] for name in sk.LAUNCHES}
+        want = local.score_batch_topk(orders, orients_np, k=k)
+        on_card = dev.type == "cuda"  # a CPU rehearsal launches nothing
+        check((launched["combo_score_topk"], launched["topk_fold"], launched["group_argmax"])
+              == ((2, 1, 0) if on_card else (0, 0, 0)),
+              f"mesh top-k {label}: launches {launched}, not 2 combo, 1 fold, 0 group_argmax")
+        check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+              and got[2] == want[2], f"mesh top-k {label}: the selection differs from one "
+                                     "device's")
+        # the scorer's device inputs, with an integer table of the same size
+        combo = cost._combo_index(orders.astype(np.int64))
+        cid_blocks = sharded._blocks(combo["cid"])
+        cid = local._blocks(combo["cid"])[0]
+        F = torch.from_numpy(rng.integers(0, 16, sharded._F_flat.numel()).astype(np.float32)
+                             ).to(dev)
+        idx4 = sharded._put(sharded._combo_f_indices(combo))
+        orients = sharded._put(orients_np, np.int32)
+        c0 = torch.tensor(3.0, device=dev)
+        n = cid_blocks[0].shape[0] * R
+        n_glob, D = n * len(cid_blocks), len(cid_blocks)
+
+        def partials(i, out):
+            return sk.combo_score_topk_partials(F, idx4, cid_blocks[i], orients, c0, k, i * n,
+                                                n_glob, out=out)
+
+        def new():
+            return sharded._fold_blocks(partials, k)
+
+        def block_scores():
+            return [sk.combo_scores(F, idx4, blk, orients, c0) for blk in cid_blocks]
+
+        def parent():
+            return sk.group_argmax(pm.gather(block_scores(), dev).reshape(-1), k)
+
+        def plain():
+            return sk._group_argmax(torch.cat([sk.combo_scores_plain(F, idx4, blk, orients, c0)
+                                               for blk in cid_blocks]).reshape(-1), k)
+
+        forms = {"new": new(), "parent": parent(), "plain": plain()}
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(forms["new"], forms["parent"], forms["plain"])),
+              f"mesh top-k {label}: the new form, the parent's and the plain version differ")
+        stacked = sk.empty_triples(D, k, torch.float32, dev)
+        for i in range(D):
+            partials(i, tuple(t[i] for t in stacked))
+        scored = block_scores()
+        fold_want = sk.fold_group_triples_plain(*stacked)
+        check(all(torch.equal(a, b) for a, b in zip(sk.fold_group_triples(*stacked), fold_want)),
+              f"mesh top-k {label}: topk_fold differs from its plain version")
+        epilogue = {"new": lambda: sk.fold_group_triples(*stacked),
+                    "parent": lambda: sk.group_argmax(pm.gather(scored, dev).reshape(-1), k)}
+        whole = {"new": new, "parent": parent}
+        times = {("whole", form): [] for form in whole}
+        times.update({("epilogue", form): [] for form in epilogue})
+        for form in MESH_EPILOGUE_TURNS:
+            times["whole", form].append(queued_ms(torch, whole[form]))
+            times["epilogue", form].append(queued_ms(torch, epilogue[form]))
+        one_device = queued_ms(torch, lambda: sk.combo_score_topk(F, idx4, cid, orients, c0, k))
+        P = S * (S - 1) // 2
+        moved = {"new": D * k * 16, "parent": n_glob * 4}
+        bounds = {
+            ("epilogue", "new"): score_bound_ms(D * k * 16 + k * 16, D * k),
+            ("epilogue", "parent"): score_bound_ms(n_glob * 4 + k * 16, n_glob),
+            ("whole", "new"): score_bound_ms(
+                idx4.numel() * 8 + 4 * int(torch.unique(idx4).numel()) + cid.numel() * 4
+                + orients.numel() * 4 + 4 + k * 16, n_glob * (P + 2)),
+        }
+        bounds["whole", "parent"] = bounds["whole", "new"]
+        plain_ms = cuda_ms(torch, plain, 3)
+        shown = {key: ("not measured" if None in ts else
+                       "/".join(f"{t:.4f}" for t in ts)) for key, ts in times.items()}
+        for part in ("whole", "epilogue"):
+            for form in ("parent", "new"):
+                bound, by = bounds[part, form]
+                print(f"mesh top-k {label} k={k} on {CARD}, {form} form, {part}: "
+                      f"{shown[part, form]} ms on the device (queued, turns "
+                      f"{'/'.join(MESH_EPILOGUE_TURNS)}), {moved[form]} bytes to the scorer's "
+                      f"device, bound {bound:.6f} ms ({by})")
+        print(f"mesh top-k {label}: one device's combo_score_topk {one_device} ms on the device "
+              f"(queued); plain version {plain_ms:.4f} ms a call; new == parent == plain, "
+              "bit for bit")
+        shapes[label] = {
+            "whole_ms": {form: times["whole", form] for form in whole},
+            "epilogue_ms": {form: times["epilogue", form] for form in epilogue},
+            "bytes_to_scorer": moved, "one_device_ms": one_device, "plain_ms": plain_ms,
+            "bound_ms": {f"{part} {form}": b[0] for (part, form), b in bounds.items()}}
+        if record is None:
+            fold = epilogue["new"]
+            bound, by = bounds["epilogue", "new"]
+            record = {
+                "name": "topk_fold", "route": "cuda", "source": SCORE_SOURCE,
+                "replaces": SCORE_REPLACES["topk_fold"], "max_abs_err": 0.0,
+                "ms": cuda_ms(torch, fold, 50), "queued_ms": queued_ms(torch, fold),
+                "plain_ms": cuda_ms(torch, lambda: sk.fold_group_triples_plain(*stacked), 10),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "shape": f"[{D}, {k}] triples ({label})"}
+        del local, sharded, F, idx4, stacked, scored, forms
+    record["mesh_epilogue"] = shapes
+    torch.cuda.empty_cache()
+    return record
 
 
 TOPK_SWEEP_SEEDS = 5
@@ -1649,21 +1820,46 @@ def phase_score_replay(torch, np, record):
     return out
 
 
-def library_bounds():
-    """Prints the bounds of two device functions the port leaves to PyTorch
+def library_bounds(torch, np, device="cuda"):
+    """Times and bounds of two device functions the port leaves to PyTorch
     calls, as the JAX package left them to XLA: device mode's rank sort
     (``ops/matrix.rank_matrix_desc``, f32 [n, n] in, int32 [n, n] out,
     about n^2 log2 n compares) at the 16K genome's n, and one EM iteration's
     products (``ops/gaussian_hmm._log_gaussian_diag`` and ``_m_step``: X and
     X**2, f64 [T, D], read twice; 16 T D f64 operations) at the HMM path's
-    largest possible fit, T = D = 3,715 (D <= T)."""
+    largest possible fit, T = D = 3,715 (D <= T), on seeded random inputs.
+    Prints them and returns {name: (ms a call, bound ms, bound by)}."""
+    from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, matrix
+
+    dev = torch.device(device)
     n, T = N_RANK, 3715
     rank_ms, rank_by = score_bound_ms(8 * n * n, n * n * math.log2(n))
     hmm_bytes, hmm_ops = 32 * T * T + 64 * T, 16 * T * T
     bytes_ms, ops_ms = 1e3 * hmm_bytes / HBM_BYTES_PER_S, 1e3 * hmm_ops / FP64_OPS_PER_S
     hmm_ms, hmm_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-    print(f"bounds on {CARD}: rank_matrix_desc at n={n} {rank_ms:.4f} ms ({rank_by}); "
-          f"an EM iteration's _log_gaussian_diag + _m_step at T=D={T} {hmm_ms:.4f} ms ({hmm_by})")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    M = torch.rand((n, n), generator=gen, device=dev)
+    sort_ms = cuda_ms(torch, lambda: matrix.rank_matrix_desc(M), 5)
+    del M
+    X = torch.rand((T, T), generator=gen, device=dev, dtype=torch.float64)
+    X2 = X ** 2
+    means = torch.rand((2, T), generator=gen, device=dev, dtype=torch.float64)
+    covars = 0.5 + torch.rand((2, T), generator=gen, device=dev, dtype=torch.float64)
+    gamma = torch.softmax(torch.rand((T, 2), generator=gen, device=dev, dtype=torch.float64), 1)
+    xi_sum = torch.rand((2, 2), generator=gen, device=dev, dtype=torch.float64)
+
+    def em_step():
+        gaussian_hmm._log_gaussian_diag(X, X2, means, covars)
+        return gaussian_hmm._m_step(X, X2, gamma, xi_sum)
+
+    em_ms = cuda_ms(torch, em_step, 20)
+    del X, X2
+    torch.cuda.empty_cache()
+    print(f"PyTorch calls on {CARD}: rank_matrix_desc at n={n} {sort_ms:.4f} ms a call, bound "
+          f"{rank_ms:.4f} ms ({rank_by}); an EM iteration's _log_gaussian_diag + _m_step at "
+          f"T=D={T} {em_ms:.4f} ms a call, bound {hmm_ms:.4f} ms ({hmm_by})")
+    return {"rank_matrix_desc": (sort_ms, rank_ms, rank_by),
+            "em_iteration": (em_ms, hmm_ms, hmm_by)}
 
 
 def forced_escalation(torch, np, device, n):
@@ -1926,22 +2122,25 @@ def phase_mesh_path(torch, workdir, main_dir, paths, resolution):
     config = e2e.write_config(os.path.join(workdir, "config.txt"), workdir, paths, resolution)
     var = cli.load_config(config)
     rt = runtime.RuntimeContext(pm.make_mesh((2, 2), [dev] * 4), 0, 1, dev)
-    reset_launches()
-    t0 = time.time()
-    with open(MESH_LOG, "w") as log, contextlib.redirect_stdout(log):
-        report = cli.run_parts(var, ["part1", "part2"], rt)
-    total_s = time.time() - t0
-    launches, scoring = count_kernels.LAUNCHES, score_launches()
+    with plain_scorers_on_cuda() as plain_calls:
+        reset_launches()
+        t0 = time.time()
+        with open(MESH_LOG, "w") as log, contextlib.redirect_stdout(log):
+            report = cli.run_parts(var, ["part1", "part2"], rt)
+        total_s = time.time() - t0
+        launches, scoring = count_kernels.LAUNCHES, score_launches()
     echo_timers(MESH_LOG)
     parts = ", ".join(f"{k} {v:.1f} s" for k, v in report.part_seconds.items())
     print(f"mesh path ({rt.mesh.describe()}): {parts}; total {total_s:.1f} s; rank counts on "
           f"{report.rank_counts_on}, {launches} kernel launches; scoring kernel launches "
           f"{json.dumps(scoring)}")
     check(launches > 0, "the mesh path launched the rank-count kernel no time")
-    # on a mesh the combo kernel scores each block and the group epilogue
-    # runs on the gathered scores
+    # on a mesh the combo kernel reduces each block to partial group triples
+    # and one fold a batch merges them
     check(scoring == MESH_SCORE_LAUNCHES,
           f"the mesh path's scoring launches {scoring} are not {MESH_SCORE_LAUNCHES}")
+    check(not any(plain_calls.values()),
+          f"a plain scoring version ran on the card on the mesh path: {plain_calls}")
     check(report.rank_counts_on == "mesh 2x2 " + str(dev),
           f"mesh path rank counts lay on {report.rank_counts_on}")
     runs = [("virtual 2x2", workdir)]
@@ -2074,10 +2273,11 @@ def main():
     for rec in hmm_records:
         rec["launches"] = hmm_launches[rec["name"]]
     for name, rec in score_records.items():
-        # each kernel's launches come from its path: phase 4's 16K run, or
-        # (block_score, which runs on escalation only) phase 5b's forced ones
-        rec["launches"] = sum(escalation_launches.values()) if name == "block_score" \
-            else scoring[name]
+        # each kernel's launches come from its path: phase 4's 16K run, the
+        # forced escalations of phase 5b (block_score, which runs on
+        # escalation only), or phase 9's mesh (topk_fold, the mesh epilogue)
+        rec["launches"] = {"block_score": sum(escalation_launches.values()),
+                           "topk_fold": mesh_scoring[name]}.get(name, scoring[name])
         rec.update(main_path_launches=scoring[name], mesh_launches=mesh_scoring[name],
                    ep_launches=[counts[name] for counts in ep_launches])
     score_records["combo_score_topk"]["mesh_group_argmax_launches"] = mesh_scoring["group_argmax"]

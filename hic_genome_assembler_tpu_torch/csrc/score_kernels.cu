@@ -7,7 +7,10 @@
 //   pair_profiles     _skew_profile_chunk (:82-151), _build_pair_profiles (:158-188)
 //   combo_score_topk  _combo_score_kernel / _combo_score_topk_kernel (:382-399)
 //                     with the group epilogue _group_argmax (:251-270)
-//   group_topk        _group_argmax alone (scores gathered from a mesh's blocks)
+//   group_topk        _group_argmax alone, on scores in device memory
+//   topk_fold         the fold of a mesh's blocks' partial group triples
+//                     (the mesh paths' _group_argmax, with combo_score_topk
+//                     and block_score in their partials form)
 //   block_score       _block_score_kernel / _block_score_topk_kernel (:203-248)
 //   pair_score        _pair_score_kernel (:402-417)
 //
@@ -267,7 +270,22 @@ pair_profiles_kernel(const float* __restrict__ M, int C, const int64_t* __restri
 // shuffles, then the block's warps); a group of one tile writes its result, a
 // longer group writes one partial per tile and topk_merge folds them, one
 // warp a group.  group_topk reads its scores from device memory (topk_tiles);
-// combo_score_topk scores its candidates itself (combo_kernel, below).
+// combo_score_topk and block_score score their candidates themselves.
+//
+// On a mesh (the partials form).  A batch of N_glob candidates is split over
+// D data-axis blocks, block i holding [n0, n0 + N) on its own card, and the
+// k groups are the whole batch's (G = ceil(N_glob / k)), so a group may
+// start in one block and end in the next.  Each block's launch clips its
+// tiles to the block's span and writes the triple of every group over the
+// candidates it holds, the empty triple (-inf, -inf, INT64_MAX) for a group
+// it does not touch; the last block also holds the -inf padding past
+// N_glob.  The D blocks' [k] triples, on one card as [D, k], go through
+// topk_fold: one warp a group, the body of topk_merge with D tiles.  Only
+// 16 bytes a group and block cross cards, where the XLA program (and the
+// port before it) wrote every score, gathered them all onto one card and
+// read them again.  With n0 = 0 and N_glob = N the partials are the final
+// result: the one-device form is the same launch.  What bounds topk_fold on
+// this card: its launch; it reads 16 D bytes a group and writes 16.
 // ---------------------------------------------------------------------------
 
 template <class I>
@@ -355,17 +373,102 @@ topk_tiles(const float* __restrict__ x, int64_t N, int64_t G, int64_t tile,
   }
 }
 
-// One warp a group folds the group's tile partials.
-__global__ void topk_merge(const Top2* __restrict__ parts, int tiles, float* __restrict__ vals,
-                           int64_t* __restrict__ idx, float* __restrict__ second) {
-  const int64_t g = blockIdx.x;
+// One warp folds group g's n triples, part(t) for t < n, into (vals, idx,
+// second)[g]: lane l merges triples l, l + 32, ..., then the warp's butterfly.
+template <class Part>
+__device__ __forceinline__ void fold_group(int n, Part part, int64_t g, float* __restrict__ vals,
+                                           int64_t* __restrict__ idx,
+                                           float* __restrict__ second) {
   Top2 x = top2_empty();
-  for (int t = threadIdx.x; t < tiles; t += 32) x = merge(x, parts[g * tiles + t]);
+  for (int t = threadIdx.x; t < n; t += 32) x = merge(x, part(t));
   x = warp_merge(x);
   if (threadIdx.x == 0) {
     vals[g] = x.v1;
     idx[g] = x.i1;
     second[g] = x.v2;
+  }
+}
+
+// One warp a group folds the tile partials of group g0 + blockIdx.x.
+__global__ void topk_merge(const Top2* __restrict__ parts, int tiles, int g0,
+                           float* __restrict__ vals, int64_t* __restrict__ idx,
+                           float* __restrict__ second) {
+  const int64_t b = blockIdx.x;
+  fold_group(tiles, [&](int t) { return parts[b * tiles + t]; }, g0 + b, vals, idx, second);
+}
+
+// One warp a group folds the D mesh blocks' triples of the group, read from
+// the [D, k] arrays (block t's triple of group g at t * k + g).
+__global__ void topk_fold_kernel(const float* __restrict__ in_vals,
+                                 const int64_t* __restrict__ in_idx,
+                                 const float* __restrict__ in_second, int D, int k,
+                                 float* __restrict__ vals, int64_t* __restrict__ idx,
+                                 float* __restrict__ second) {
+  const int64_t g = blockIdx.x;
+  fold_group(
+      D,
+      [&](int t) {
+        const int64_t at = static_cast<int64_t>(t) * k + g;
+        return Top2{in_vals[at], in_second[at], in_idx[at]};
+      },
+      g, vals, idx, second);
+}
+
+// How a scoring launch divides its N candidates among thread blocks
+// (score_grid).  k = 0: block x holds [x * tile, (x + 1) * tile) of [0, N).
+// k > 0: the launch holds [n0, n0 + N) of a batch in k groups of G; its span
+// [n0, span_hi) ends at n0 + N, or, for the launch that ends the batch, at
+// the end of the last group's -inf padding, k * G; it touches groups [g0,
+// g0 + ng), and block (x, y) holds tile x of group g0 + y clipped to the
+// span: [max(g * G, n0) + x * tile, ...), at most tile candidates.
+struct ScoreGrid {
+  int64_t tile, n0, G, span_hi;
+  int k, g0, ng;
+  int64_t tiles;  // blocks a group (gridDim.x)
+};
+
+// The range of block (blockIdx.x, blockIdx.y) in the launch's own
+// candidates [0, N) (global less n0); [real_hi, hi) is the last group's
+// -inf padding, and lo >= hi a tile past the group's part in the span.
+template <bool kTopk>
+__device__ __forceinline__ void block_range(int64_t N, const ScoreGrid& grid, int64_t* lo,
+                                            int64_t* hi, int64_t* real_hi) {
+  if (kTopk) {
+    const int64_t g = grid.g0 + blockIdx.y;
+    const int64_t glo = max64(g * grid.G, grid.n0) + blockIdx.x * grid.tile;
+    *lo = glo - grid.n0;
+    *hi = min64(min64(glo + grid.tile, (g + 1) * grid.G), grid.span_hi) - grid.n0;
+  } else {
+    *lo = static_cast<int64_t>(blockIdx.x) * grid.tile;
+    *hi = min64(*lo + grid.tile, N);
+  }
+  *real_hi = min64(*hi, N);
+}
+
+// A top-k block's result: its triple with the global index (lo is the
+// range's first candidate in the launch), into (vals, idx, second)[g] or,
+// where a group spans blocks, its tile partial for topk_merge.  Block (0, 0)
+// also writes the empty triple of every group the launch does not touch.
+__device__ __forceinline__ void store_topk(Top2L x, const ScoreGrid& grid, int64_t lo,
+                                           Top2* parts, float* vals, int64_t* idx,
+                                           float* second) {
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int g = threadIdx.x; g < grid.k; g += blockDim.x) {
+      if (g >= grid.g0 && g < grid.g0 + grid.ng) continue;
+      vals[g] = -INFINITY;
+      idx[g] = INT64_MAX;
+      second[g] = -INFINITY;
+    }
+  }
+  if (threadIdx.x != 0) return;
+  const int64_t g = grid.g0 + blockIdx.y;
+  const Top2 w = x.i1 == INT32_MAX ? top2_empty() : Top2{x.v1, x.v2, grid.n0 + lo + x.i1};
+  if (gridDim.x == 1) {
+    vals[g] = w.v1;
+    idx[g] = w.i1;
+    second[g] = w.v2;
+  } else {
+    parts[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x] = w;
   }
 }
 
@@ -401,7 +504,10 @@ __global__ void topk_merge(const Top2* __restrict__ parts, int tiles, float* __r
 // first candidate, merged over the block and widened to int64 at the end; a
 // group of several blocks is folded by topk_merge, a second launch.  The -inf
 // padding past N is merged as its first index alone, which gives the same
-// triple as every padding candidate.
+// triple as every padding candidate.  On a mesh (the partials form, see the
+// group top-k note) the launch holds candidates [n0, n0 + N) of the whole
+// batch's N_glob: its tiles are clipped to that span, its indices are
+// global, and it launches only the groups it touches (ScoreGrid).
 // ---------------------------------------------------------------------------
 
 constexpr int kComboWarps = kThreads / 32;
@@ -447,19 +553,19 @@ __global__ void __launch_bounds__(kThreads)
 combo_kernel(const float* __restrict__ F, int64_t f_numel, const int64_t* __restrict__ idx4,
              int n_combo, const int32_t* __restrict__ cid, int64_t N,
              const int32_t* __restrict__ orients, int R, int S, const float* __restrict__ c0,
-             int64_t G, int64_t tile, Top2* __restrict__ parts, float* __restrict__ costs,
+             const ScoreGrid grid, Top2* __restrict__ parts, float* __restrict__ costs,
              float* __restrict__ vals, int64_t* __restrict__ idx, float* __restrict__ second) {
   const int P = S * (S - 1) / 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint32_t* masks = reinterpret_cast<uint32_t*>(dyn_smem);  // [min(R, kComboMaskChunk)]
   float* values = reinterpret_cast<float*>(masks + min(R, kComboMaskChunk)) + warp * 4 * P;
-  const int64_t g = blockIdx.y;
-  const int64_t lo = kTopk ? g * G + blockIdx.x * tile : blockIdx.x * tile;
-  const int64_t hi = min64(lo + tile, kTopk ? (g + 1) * G : N);
-  const int64_t real_hi = min64(hi, N);  // [real_hi, hi): the last group's padding
+  int64_t lo, hi, real_hi;
+  block_range<kTopk>(N, grid, &lo, &hi, &real_hi);
   const float c0v = *c0;
   Top2L x = top2l_empty();
-  for (int r0 = 0; r0 < R; r0 += kComboMaskChunk) {
+  // a tile past its group's part of the span builds no masks: the whole
+  // block skips the loop
+  for (int r0 = 0; lo < hi && r0 < R; r0 += kComboMaskChunk) {
     const int r1 = min(R, r0 + kComboMaskChunk);
     __syncthreads();  // the previous chunk's masks have been read
     build_masks(orients, S, r0, r1, masks);
@@ -494,46 +600,67 @@ combo_kernel(const float* __restrict__ F, int64_t f_numel, const int64_t* __rest
     }
   }
   if (!kTopk) return;
-  if (threadIdx.x == 0 && real_hi < hi)
+  if (threadIdx.x == 0 && lo < hi && real_hi < hi)
     x = merge(x, Top2L{-INFINITY, -INFINITY, static_cast<int32_t>(max64(lo, N) - lo)});
   x = block_merge(x, top2l_empty());
-  if (threadIdx.x != 0) return;
-  const Top2 w{x.v1, x.v2, lo + x.i1};
-  if (gridDim.x == 1) {
-    vals[g] = w.v1;
-    idx[g] = w.i1;
-    second[g] = w.v2;
+  store_topk(x, grid, lo, parts, vals, idx, second);
+}
+
+// The ScoreGrid of a launch of N candidates, `tile` a block: k = 0, tiles
+// of [0, N) (n0 = 0, N_glob = N); k > 0, the candidates [n0, n0 + N) of a
+// batch of N_glob in k groups, ceil(min(G, span) / tile) tiles a group.
+cudaError_t score_grid(int64_t N, int k, int64_t n0, int64_t N_glob, int64_t tile,
+                       ScoreGrid* grid) {
+  if (k == 0 ? (n0 != 0 || N_glob != N) : (n0 < 0 || N_glob < 1 || n0 + N > N_glob))
+    return cudaErrorInvalidValue;
+  ScoreGrid& gr = *grid;
+  gr.tile = tile;
+  gr.n0 = n0;
+  gr.k = k;
+  if (k == 0) {
+    gr.G = gr.span_hi = N;
+    gr.g0 = 0;
+    gr.ng = 1;
+    gr.tiles = (N + tile - 1) / tile;
   } else {
-    parts[g * gridDim.x + blockIdx.x] = w;
+    gr.G = (N_glob + k - 1) / k;
+    gr.span_hi = n0 + N < N_glob ? n0 + N : static_cast<int64_t>(k) * gr.G;
+    gr.g0 = static_cast<int>(n0 / gr.G);
+    gr.ng = static_cast<int>((gr.span_hi - 1) / gr.G + 1 - gr.g0);
+    gr.tiles = (std::min(gr.G, gr.span_hi - n0) + tile - 1) / tile;
   }
+  return gr.tiles > INT32_MAX ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 template <int kS>
 cudaError_t launch_combo(const float* F, int64_t f_numel, const int64_t* idx4, int n_combo,
                          const int32_t* cid, int64_t Bo, const int32_t* orients, int R, int S,
-                         const float* c0, int k, int64_t tile, Top2* parts, float* costs,
-                         float* vals, int64_t* idx, float* second, cudaStream_t stream) {
+                         const float* c0, int k, int64_t n0, int64_t N_glob, int64_t tile,
+                         Top2* parts, float* costs, float* vals, int64_t* idx, float* second,
+                         cudaStream_t stream) {
   const int64_t N = Bo * R;
   const size_t smem = sizeof(uint32_t) * std::min(R, kComboMaskChunk) +
                       sizeof(float) * kComboWarps * 2 * S * (S - 1);
-  const int64_t G = k > 0 ? (N + k - 1) / k : N;
-  const int64_t tiles = (G + tile - 1) / tile;
-  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  ScoreGrid grid;
+  cudaError_t err = score_grid(N, k, n0, N_glob, tile, &grid);
+  if (err != cudaSuccess) return err;
   const void* kernel = k > 0 ? reinterpret_cast<const void*>(&combo_kernel<kS, true>)
                              : reinterpret_cast<const void*>(&combo_kernel<kS, false>);
-  cudaError_t err = allow_smem(kernel, smem);
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
+  const unsigned tiles = static_cast<unsigned>(grid.tiles);
   if (k == 0) {
-    combo_kernel<kS, false><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-        F, f_numel, idx4, n_combo, cid, N, orients, R, S, c0, G, tile, parts, costs, vals, idx,
+    combo_kernel<kS, false><<<tiles, kThreads, smem, stream>>>(
+        F, f_numel, idx4, n_combo, cid, N, orients, R, S, c0, grid, parts, costs, vals, idx,
         second);
     return cudaGetLastError();
   }
-  combo_kernel<kS, true><<<dim3(static_cast<unsigned>(tiles), k), kThreads, smem, stream>>>(
-      F, f_numel, idx4, n_combo, cid, N, orients, R, S, c0, G, tile, parts, costs, vals, idx,
+  combo_kernel<kS, true><<<dim3(tiles, grid.ng), kThreads, smem, stream>>>(
+      F, f_numel, idx4, n_combo, cid, N, orients, R, S, c0, grid, parts, costs, vals, idx,
       second);
   if (tiles > 1)
-    topk_merge<<<k, 32, 0, stream>>>(parts, static_cast<int>(tiles), vals, idx, second);
+    topk_merge<<<grid.ng, 32, 0, stream>>>(parts, static_cast<int>(tiles), grid.g0, vals, idx,
+                                           second);
   return cudaGetLastError();
 }
 
@@ -588,7 +715,8 @@ cudaError_t launch_combo(const float* F, int64_t f_numel, const int64_t* idx4, i
 // argmax, second) as combo_kernel does (push, when the masks fit one chunk
 // and a lane's indices ascend), folded by topk_merge when a group spans
 // blocks.  A warp with several orders loads its next order's ids while it
-// scores the current one.
+// scores the current one.  On a mesh the top-k form takes the partials form
+// of combo_kernel (n0, N_glob; see the group top-k note).
 //
 // What was measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6, with
 // tools/block_kernel_turns.py): the escalation's 2,048 x 256 launch takes
@@ -722,8 +850,8 @@ template <int kS, bool kTopk>
 __global__ void __launch_bounds__(kThreads)
 block_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict__ sizes, int Sp,
              const int32_t* __restrict__ orders, int64_t N, const int32_t* __restrict__ orients,
-             int R, int S_arg, int halves, int vec4, const float* __restrict__ c0, int64_t G,
-             int64_t tile, Top2* __restrict__ parts, float* __restrict__ costs,
+             int R, int S_arg, int halves, int vec4, const float* __restrict__ c0,
+             const ScoreGrid grid, Top2* __restrict__ parts, float* __restrict__ costs,
              float* __restrict__ vals, int64_t* __restrict__ idx, float* __restrict__ second) {
   const int S = kS > 0 ? kS : S_arg;
   const int P = S * (S - 1) / 2;
@@ -739,13 +867,11 @@ block_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict
     while (rest >= S - 1 - i) rest -= S - 1 - i++;
     pairs[p] = static_cast<uint32_t>(i) << 8 | static_cast<uint32_t>(i + 1 + rest);
   }
-  const int64_t g = blockIdx.y;
-  const int64_t lo = kTopk ? g * G + blockIdx.x * tile : blockIdx.x * tile;
-  const int64_t hi = min64(lo + tile, kTopk ? (g + 1) * G : N);
-  const int64_t real_hi = min64(hi, N);  // [real_hi, hi): the last group's padding
+  int64_t lo, hi, real_hi;
+  block_range<kTopk>(N, grid, &lo, &hi, &real_hi);
   const float c0v = *c0;
   Top2L x = top2l_empty();
-  for (int r0 = 0; r0 < R; r0 += kComboMaskChunk) {
+  for (int r0 = 0; lo < hi && r0 < R; r0 += kComboMaskChunk) {  // as in combo_kernel
     const int r1 = min(R, r0 + kComboMaskChunk);
     __syncthreads();  // the previous chunk's masks have been read
     build_masks(orients, S, r0, r1, masks);
@@ -811,48 +937,42 @@ block_kernel(const float* __restrict__ F, int64_t Cp1, const int64_t* __restrict
     }
   }
   if constexpr (!kTopk) return;
-  if (threadIdx.x == 0 && real_hi < hi)
+  if (threadIdx.x == 0 && lo < hi && real_hi < hi)
     x = merge(x, Top2L{-INFINITY, -INFINITY, static_cast<int32_t>(max64(lo, N) - lo)});
   x = block_merge(x, top2l_empty());
-  if (threadIdx.x != 0) return;
-  const Top2 w{x.v1, x.v2, lo + x.i1};
-  if (gridDim.x == 1) {
-    vals[g] = w.v1;
-    idx[g] = w.i1;
-    second[g] = w.v2;
-  } else {
-    parts[g * gridDim.x + blockIdx.x] = w;
-  }
+  store_topk(x, grid, lo, parts, vals, idx, second);
 }
 
 template <int kS>
 cudaError_t launch_block(const float* F, int64_t Cp1, const int64_t* sizes, int Sp,
                          const int32_t* orders, int64_t Bo, int S, const int32_t* orients, int R,
-                         int halves, const float* c0, int k, int64_t tile, Top2* parts,
-                         float* costs, float* vals, int64_t* idx, float* second,
-                         cudaStream_t stream) {
+                         int halves, const float* c0, int k, int64_t n0, int64_t N_glob,
+                         int64_t tile, Top2* parts, float* costs, float* vals, int64_t* idx,
+                         float* second, cudaStream_t stream) {
   const int64_t N = Bo * R;
   const size_t smem = sizeof(uint32_t) * (std::min(R, kComboMaskChunk) + S * (S - 1) / 2 +
                                           kBlockWarps * block_warp_words(S));
-  const int64_t G = k > 0 ? (N + k - 1) / k : N;
-  const int64_t tiles = (G + tile - 1) / tile;
-  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  ScoreGrid grid;
+  cudaError_t err = score_grid(N, k, n0, N_glob, tile, &grid);
+  if (err != cudaSuccess) return err;
   const int vec4 = R % 4 == 0 && reinterpret_cast<uintptr_t>(costs) % 16 == 0;
   const void* kernel = k > 0 ? reinterpret_cast<const void*>(&block_kernel<kS, true>)
                              : reinterpret_cast<const void*>(&block_kernel<kS, false>);
-  cudaError_t err = allow_smem(kernel, smem);
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
+  const unsigned tiles = static_cast<unsigned>(grid.tiles);
   if (k == 0) {
-    block_kernel<kS, false><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
-        F, Cp1, sizes, Sp, orders, N, orients, R, S, halves, vec4, c0, G, tile, parts, costs,
-        vals, idx, second);
+    block_kernel<kS, false><<<tiles, kThreads, smem, stream>>>(
+        F, Cp1, sizes, Sp, orders, N, orients, R, S, halves, vec4, c0, grid, parts, costs, vals,
+        idx, second);
     return cudaGetLastError();
   }
-  block_kernel<kS, true><<<dim3(static_cast<unsigned>(tiles), k), kThreads, smem, stream>>>(
-      F, Cp1, sizes, Sp, orders, N, orients, R, S, halves, vec4, c0, G, tile, parts, costs, vals,
+  block_kernel<kS, true><<<dim3(tiles, grid.ng), kThreads, smem, stream>>>(
+      F, Cp1, sizes, Sp, orders, N, orients, R, S, halves, vec4, c0, grid, parts, costs, vals,
       idx, second);
   if (tiles > 1)
-    topk_merge<<<k, 32, 0, stream>>>(parts, static_cast<int>(tiles), vals, idx, second);
+    topk_merge<<<grid.ng, 32, 0, stream>>>(parts, static_cast<int>(tiles), grid.g0, vals, idx,
+                                           second);
   return cudaGetLastError();
 }
 
@@ -1013,14 +1133,19 @@ extern "C" int pair_profiles(const float* M, int C, const int64_t* sizes, int Sp
 }
 
 // Combo scores of Bo orders x R orientations, `tile` candidates a block.
-// k == 0: every score into costs [Bo, R].  k > 0: the group top-k into
-// vals/idx/second [k] (parts: k * ceil(ceil(N / k) / tile) 16-byte partials
-// when a group spans blocks).
+// k == 0: every score into costs [Bo, R] (n0 = 0, N_glob = Bo * R).  k > 0:
+// the group top-k into vals/idx/second [k] of the candidates [n0, n0 + Bo *
+// R) of a batch of N_glob in k groups (one device: n0 = 0, N_glob = Bo * R;
+// a mesh block: its partial triples, see topk_fold); parts: k * tiles
+// 16-byte partials when a group spans blocks, tiles = ceil(min(G, span) /
+// tile) with G = ceil(N_glob / k) and span = Bo * R, or N_glob's padded end
+// less n0 for the block that ends the batch.
 extern "C" int combo_score_topk(const float* F, int64_t f_numel, const int64_t* idx4,
                                 int n_combo, const int32_t* cid, int64_t Bo,
                                 const int32_t* orients, int R, int S, const float* c0, int k,
-                                int64_t tile, void* parts, float* costs, float* vals,
-                                int64_t* idx, float* second, cudaStream_t stream) {
+                                int64_t n0, int64_t N_glob, int64_t tile, void* parts,
+                                float* costs, float* vals, int64_t* idx, float* second,
+                                cudaStream_t stream) {
   if (n_combo < 1 || Bo < 1 || R < 1 || S < 2 || S > 31 || k < 0 || k > 65535 || tile < 1 ||
       tile > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1029,14 +1154,15 @@ extern "C" int combo_score_topk(const float* F, int64_t f_numel, const int64_t* 
 #define COMBO_CASE(n)                                                                       \
   case n:                                                                                  \
     return static_cast<int>(launch_combo<n>(F, f_numel, idx4, n_combo, cid, Bo, orients, R, \
-                                            S, c0, k, tile, p, costs, vals, idx, second,   \
-                                            stream));
+                                            S, c0, k, n0, N_glob, tile, p, costs, vals, idx, \
+                                            second, stream));
     COMBO_CASE(2) COMBO_CASE(3) COMBO_CASE(4) COMBO_CASE(5) COMBO_CASE(6) COMBO_CASE(7)
     COMBO_CASE(8)
 #undef COMBO_CASE
     default:  // S > 8: the sums' loops are not unrolled
       return static_cast<int>(launch_combo<0>(F, f_numel, idx4, n_combo, cid, Bo, orients, R, S,
-                                              c0, k, tile, p, costs, vals, idx, second, stream));
+                                              c0, k, n0, N_glob, tile, p, costs, vals, idx,
+                                              second, stream));
   }
 }
 
@@ -1051,20 +1177,32 @@ extern "C" int group_topk(const float* x, int64_t N, int k, int64_t tile, void* 
   topk_tiles<<<dim3(static_cast<unsigned>(tiles), k), kThreads, 0, stream>>>(x, N, G, tile, p,
                                                                              vals, idx, second);
   if (tiles > 1)
-    topk_merge<<<k, 32, 0, stream>>>(p, static_cast<int>(tiles), vals, idx, second);
+    topk_merge<<<k, 32, 0, stream>>>(p, static_cast<int>(tiles), 0, vals, idx, second);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fold of a mesh's D blocks' partial group triples, [D, k] each (block
+// t's triple of group g at t * k + g, as combo_score_topk and block_score
+// write them), into vals/idx/second [k]: one warp a group, one launch.
+extern "C" int topk_fold(const float* in_vals, const int64_t* in_idx, const float* in_second,
+                         int D, int k, float* vals, int64_t* idx, float* second,
+                         cudaStream_t stream) {
+  if (D < 1 || k < 1 || k > INT32_MAX / D) return static_cast<int>(cudaErrorInvalidValue);
+  topk_fold_kernel<<<k, 32, 0, stream>>>(in_vals, in_idx, in_second, D, k, vals, idx, second);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Block scores of Bo orders (int32 [Bo, S]) x R orientation rows (int32
 // [R, S]), `tile` candidates a block.  k == 0: every score into costs
-// [Bo, R], tile a multiple of R (whole orders a block).  k > 0: the group
-// top-k into vals/idx/second [k] (parts: as combo_score_topk).  halves = 1
-// sums through the halves tables (2 <= S <= 10), 0 directly.
+// [Bo, R], tile a multiple of R (whole orders a block), n0 = 0 and N_glob =
+// Bo * R.  k > 0: the group top-k into vals/idx/second [k] of the candidates
+// [n0, n0 + Bo * R) of a batch of N_glob (parts: as combo_score_topk).
+// halves = 1 sums through the halves tables (2 <= S <= 10), 0 directly.
 extern "C" int block_score(const float* F, int64_t Cp1, const int64_t* sizes, int Sp,
                            const int32_t* orders, int64_t Bo, int S, const int32_t* orients,
-                           int R, int halves, const float* c0, int k, int64_t tile, void* parts,
-                           float* costs, float* vals, int64_t* idx, float* second,
-                           cudaStream_t stream) {
+                           int R, int halves, const float* c0, int k, int64_t n0,
+                           int64_t N_glob, int64_t tile, void* parts, float* costs, float* vals,
+                           int64_t* idx, float* second, cudaStream_t stream) {
   if (Bo < 1 || S < 1 || S > 31 || R < 1 || Sp < 1 || k < 0 || k > 65535 || tile < 1 ||
       tile > INT32_MAX || (k == 0 && tile % R) || (halves && (S < 2 || S > kHalvesMaxS)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1073,15 +1211,15 @@ extern "C" int block_score(const float* F, int64_t Cp1, const int64_t* sizes, in
 #define BLOCK_CASE(n)                                                                        \
   case n:                                                                                   \
     return static_cast<int>(launch_block<n>(F, Cp1, sizes, Sp, orders, Bo, S, orients, R,   \
-                                            halves, c0, k, tile, p, costs, vals, idx, second, \
-                                            stream));
+                                            halves, c0, k, n0, N_glob, tile, p, costs, vals,  \
+                                            idx, second, stream));
     BLOCK_CASE(2) BLOCK_CASE(3) BLOCK_CASE(4) BLOCK_CASE(5) BLOCK_CASE(6) BLOCK_CASE(7)
     BLOCK_CASE(8) BLOCK_CASE(9) BLOCK_CASE(10)
 #undef BLOCK_CASE
     default:  // S = 1 or S > 10: direct sums, the loops not unrolled
       return static_cast<int>(launch_block<0>(F, Cp1, sizes, Sp, orders, Bo, S, orients, R,
-                                              halves, c0, k, tile, p, costs, vals, idx, second,
-                                              stream));
+                                              halves, c0, k, n0, N_glob, tile, p, costs, vals,
+                                              idx, second, stream));
   }
 }
 

@@ -114,15 +114,17 @@ SIGNATURES = {
     # M [C, C], C, sizes int64 [Sp], Sp, cmax, pairs a block, h [4*Sp*Sp, 2*cmax - 1]
     "pair_profiles": [_PTR, _INT, _PTR, _INT, _INT, _INT, _PTR, _PTR],
     # F, F's numel, idx4 [n_combo, 4], n_combo, cid [Bo, P], Bo, orients [R, S],
-    # R, S, c0, k, tile, parts scratch, costs, vals, idx, second
+    # R, S, c0, k, n0, N_glob, tile, parts scratch, costs, vals, idx, second
     "combo_score_topk": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _PTR, _INT, _INT, _PTR, _INT,
-                         _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
+                         _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
     # x [N], N, k, tile, parts scratch, vals, idx, second
     "group_topk": [_PTR, _I64, _INT, _I64, _PTR, _PTR, _PTR, _PTR, _PTR],
+    # in vals [D, k], in idx [D, k], in second [D, k], D, k, vals, idx, second
+    "topk_fold": [_PTR, _PTR, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR],
     # F, C + 1, sizes, Sp, orders [Bo, S], Bo, S, orients [R, S], R, halves, c0, k,
-    # tile, parts scratch, costs [Bo, R], vals, idx, second
+    # n0, N_glob, tile, parts scratch, costs [Bo, R], vals, idx, second
     "block_score": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _INT, _PTR, _INT,
-                    _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
+                    _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
     # F, C + 1, sizes, Sp, cand [B, 2*W], B, W, c0, out [B]
     "pair_score": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR, _PTR],
 }

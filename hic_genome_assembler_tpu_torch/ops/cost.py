@@ -24,10 +24,13 @@ module, which imports jax; ``PrecisionStats`` is an object each run creates
 and passes, not a process-wide global.
 
 With a mesh (``parallel.mesh.Mesh``), candidate batches are split over its
-data axis with the JAX package's padding rule, the table and the small
-index tensors are replicated to each data-axis device, and every block's
-scores are gathered on the mesh's first device before any selection or
-readback, so that the top-k groups are the JAX mesh path's.
+data axis with the JAX package's padding rule, and the table and the small
+index tensors are replicated to each data-axis device.  The top-k groups
+are the JAX mesh path's, over the whole padded batch: each block reduces
+the groups it holds to partial (max, argmax, second) triples, which alone
+reach the scorer's device and are folded there once
+(``score_kernels.fold_group_triples``).  The dense scores of
+``score_batch`` and ``score_pairs`` are gathered on the scorer's device.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ import torch
 
 from hic_genome_assembler_tpu_torch.ops import oracle
 from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
-from hic_genome_assembler_tpu_torch.ops.score_kernels import group_argmax as _group_argmax
+from hic_genome_assembler_tpu_torch.ops.score_kernels import (  # noqa: F401
+    group_argmax as _group_argmax,  # the JAX module's name (ops/cost.py:251); no caller here
+)
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
 
 
@@ -370,6 +375,23 @@ class SubsetScorer:
         batch's blocks, the results gathered on ``self.device``."""
         return self._gather([score(i, blk) for i, blk in enumerate(self._blocks(batch))])
 
+    def _fold_blocks(self, partials: Callable, k: int):
+        """The group top-k of a batch split over the data axis:
+        ``partials(i, out)`` runs block i's partials wrapper on its device
+        (writing into ``out`` where given), the blocks' [k] triples are
+        stacked [D, k] on ``self.device`` (a block there writes its row in
+        place; another block's 16 bytes a group are copied) and folded in
+        one launch.  Returns ``(vals, idx, second)`` [k]."""
+        stacked = sk.empty_triples(len(self._data_devices), k, self._F_flat.dtype, self.device)
+        for i, dev in enumerate(self._data_devices):
+            row = tuple(t[i] for t in stacked)
+            if dev == self.device:
+                partials(i, row)
+            else:
+                for dst, src in zip(row, partials(i, None)):
+                    dst.copy_(src)
+        return sk.fold_group_triples(*stacked)
+
     def _block_costs(self, chunk: np.ndarray, orients_r) -> torch.Tensor:
         """``block_scores`` over a chunk of orders: [rows, R], with the
         mesh's padding rows at the end."""
@@ -450,10 +472,16 @@ class SubsetScorer:
                     self._c0_r[0], groups,
                 ))
             else:
-                # groups over the mesh-padded scores, as in the JAX mesh path;
+                # groups over the mesh-padded batch, as in the JAX mesh path;
                 # padding rows are dropped in finish
-                costs = self._block_costs(chunk, orients_r)
-                handles.extend(_group_argmax(costs.reshape(-1), groups))
+                blocks = self._blocks(chunk)
+                n_glob = sum(blk.shape[0] for blk in blocks) * R
+                handles.extend(self._fold_blocks(
+                    lambda i, out: sk.block_score_topk_partials(
+                        self._F_r[i], self._sizes_r[i], blocks[i], orients_r[i], self._c0_r[i],
+                        groups, i * blocks[0].shape[0] * R, n_glob, out=out),
+                    groups,
+                ))
             meta.append((ofs, n_real, min(k, n_real * R)))
 
         def finish(host):
@@ -502,10 +530,10 @@ class SubsetScorer:
 
     def _score_topk_combo_async(self, orders: np.ndarray, orients: np.ndarray, k: int):
         """Brute-force top-k via the combo factorization; the candidate ->
-        combo map and its device copy are reused across chromosomes.  On one
-        device the scores never leave the kernel; on a mesh each block's
-        scores are gathered first.  Returns (handles, finish) — see
-        score_batch_topk_async."""
+        combo map and its device copy are reused across chromosomes.  The
+        scores never leave the kernel: on a mesh each block's launch emits
+        its groups' partial triples, folded once (``_fold_blocks``).
+        Returns (handles, finish) — see score_batch_topk_async."""
         Bo, S = orders.shape
         R = orients.shape[0]
         combo = _combo_index(orders.astype(np.int64))
@@ -526,11 +554,12 @@ class SubsetScorer:
                 self._F_r[0], idx4_r[0], cid_blocks[0], orients_r[0], self._c0_r[0], groups
             )
         else:
-            costs = self._gather([
-                sk.combo_scores(self._F_r[i], idx4_r[i], cid, orients_r[i], self._c0_r[i])
-                for i, cid in enumerate(cid_blocks)
-            ])
-            vals_d, idx_d, second_d = _group_argmax(costs.reshape(-1), groups)
+            vals_d, idx_d, second_d = self._fold_blocks(
+                lambda i, out: sk.combo_score_topk_partials(
+                    self._F_r[i], idx4_r[i], cid_blocks[i], orients_r[i], self._c0_r[i], groups,
+                    i * cid_blocks[0].shape[0] * R, n_pad * R, out=out),
+                groups,
+            )
 
         def finish(host):
             vals, idx, second = host[0], host[1], host[2]

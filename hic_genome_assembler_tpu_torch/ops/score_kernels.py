@@ -12,8 +12,11 @@ which XLA fuses into kernels on the TPU:
   the group epilogue ``_group_argmax`` (``:251-270``);
 * :func:`block_scores` and :func:`block_score_topk` —
   ``_block_score_kernel`` / ``_block_score_topk_kernel`` (``:203-248``);
-* :func:`group_argmax` — the group epilogue alone, for scores gathered from
-  a mesh's blocks;
+* :func:`group_argmax` — the group epilogue alone, on scores in memory;
+* :func:`combo_score_topk_partials`, :func:`block_score_topk_partials` and
+  :func:`fold_group_triples` — the mesh paths' ``_group_argmax``: each
+  data-axis block reduces the groups it holds to partial (max, argmax,
+  second) triples, and one fold merges the blocks' triples;
 * :func:`pair_scores` — ``_pair_score_kernel`` (``:402-417``).
 
 On a CUDA tensor each function launches its hand-written kernel in
@@ -42,7 +45,7 @@ import torch.nn.functional as tnf
 # that the main path went through the kernels).
 LAUNCHES = {
     "pair_profiles": 0, "combo_score_topk": 0, "block_score": 0, "pair_score": 0,
-    "group_argmax": 0,
+    "group_argmax": 0, "topk_fold": 0,
 }
 
 # Candidates one block of the top-k kernels reduces (a group larger than
@@ -373,20 +376,30 @@ def _group_argmax(flat: torch.Tensor, k: int):
     return vals, idx, second
 
 
-def _topk_outputs(k: int, G: int, dev: torch.device):
-    """The three outputs and the tile scratch of a group top-k launch."""
-    tiles = -(-G // TOPK_TILE)
-    vals = torch.empty(k, dtype=torch.float32, device=dev)
-    idx = torch.empty(k, dtype=torch.int64, device=dev)
-    second = torch.empty(k, dtype=torch.float32, device=dev)
+def _topk_outputs(k: int, G: int, dev: torch.device, span: int | None = None, out=None):
+    """The three outputs (``out`` where given) and the tile scratch of a
+    group top-k launch whose groups of ``G`` candidates it holds ``span`` of
+    (default all): ``ceil(min(G, span) / TOPK_TILE)`` tiles a group, as the
+    kernels count them."""
+    tiles = -(-min(G, G if span is None else span) // TOPK_TILE)
+    if out is None:
+        out = _empty_triple(k, dev)
     parts = torch.empty((k * tiles if tiles > 1 else 1, 2), dtype=torch.int64, device=dev)
-    return vals, idx, second, parts
+    return (*out, parts)
+
+
+def _empty_triple(k: int, dev: torch.device):
+    """Uninitialised float32 ``(vals, idx, second)`` [k] on ``dev``."""
+    return (torch.empty(k, dtype=torch.float32, device=dev),
+            torch.empty(k, dtype=torch.int64, device=dev),
+            torch.empty(k, dtype=torch.float32, device=dev))
 
 
 def group_argmax(flat: torch.Tensor, k: int):
     """``(vals [k], idx [k] int64, second [k])`` of :func:`_group_argmax` over
-    the 1-D scores ``flat`` (the group epilogue of the top-k kernels, for
-    scores gathered from a mesh's blocks)."""
+    the 1-D scores ``flat`` (the group epilogue of the top-k kernels, on
+    scores that are in memory; the mesh paths fold partial triples instead,
+    :func:`fold_group_triples`)."""
     _tensor(flat, "flat", _FLOATS, 1, flat.device)
     G = _topk_groups(flat.shape[0], k)
     if not _on_cuda(flat):
@@ -396,6 +409,134 @@ def group_argmax(flat: torch.Tensor, k: int):
     _launch("group_argmax", flat.device, lib.group_topk, flat.data_ptr(), flat.shape[0], k,
             TOPK_TILE, parts.data_ptr(), vals.data_ptr(), idx.data_ptr(), second.data_ptr())
     return vals, idx, second
+
+
+# ---------------------------------------------------------------------------
+# The group top-k on a mesh: partial triples a block, one fold
+# ---------------------------------------------------------------------------
+#
+# A batch of ``n_glob`` candidates in k groups of G = ceil(n_glob / k) (the
+# last padded with -inf) is split over D data-axis blocks, block i holding
+# candidates [n0, n0 + n) on its own device.  Each block reduces every group
+# to the (max, argmax, second) triple of the candidates it holds (the empty
+# triple (-inf, -inf, INT64_MAX) where it holds none; the block that ends the
+# batch also holds the padding), and :func:`fold_group_triples` merges the D
+# blocks' triples, stacked [D, k], into :func:`_group_argmax`'s result over
+# the whole batch: the triple merge is exact, commutative and associative.
+
+EMPTY_INDEX = torch.iinfo(torch.int64).max  # the argmax of the empty triple
+
+
+def empty_triples(D: int, k: int, dtype, device):
+    """Uninitialised ``(vals, idx, second)`` arrays [D, k] for D blocks'
+    triples: row i is block i's ``out`` in the partials wrappers."""
+    return (torch.empty((D, k), dtype=dtype, device=device),
+            torch.empty((D, k), dtype=torch.int64, device=device),
+            torch.empty((D, k), dtype=dtype, device=device))
+
+
+def _partial_span(n: int, k: int, n0: int, n_glob: int) -> Tuple[int, int]:
+    """Checks a block of ``n`` candidates at ``n0`` in a batch of
+    ``n_glob`` in ``k`` groups; returns ``(G, span)``: the group size and
+    the candidates the block's span holds (its own, and for the block that
+    ends the batch the last group's padding too)."""
+    G = _topk_groups(n_glob, k)
+    if n < 1 or n0 < 0 or n0 + n > n_glob:
+        raise ValueError(f"candidates [{n0}, {n0 + n}) lie outside the batch's {n_glob}")
+    return G, (n if n0 + n < n_glob else k * G - n0)
+
+
+def _group_partials(flat: torch.Tensor, k: int, n0: int, n_glob: int):
+    """Plain torch partial triples ``(vals [k], idx [k], second [k])`` of the
+    scores ``flat`` of candidates [n0, n0 + len) in a batch of ``n_glob`` in
+    k groups: over each group's candidates in the block, as
+    :func:`_group_argmax` gives them (NaN is the maximum, the lowest index
+    wins a tie), and the empty triple for a group the block does not hold."""
+    n = flat.shape[0]
+    G, span = _partial_span(n, k, n0, n_glob)
+    dev, neg = flat.device, float("-inf")
+    vals, second = (flat.new_full((k,), neg) for _ in range(2))
+    idx = torch.full((k,), EMPTY_INDEX, dtype=torch.int64, device=dev)
+    g0, g1 = n0 // G, (n0 + span - 1) // G + 1        # the groups the block touches
+    first = n0 - g0 * G
+    x = flat.new_full(((g1 - g0) * G,), neg)
+    x[first:first + n] = flat
+    held = torch.zeros((g1 - g0) * G, dtype=torch.bool, device=dev)
+    held[first:first + span] = True                   # its candidates and the padding
+    x, held = x.reshape(-1, G), held.reshape(-1, G)
+    top = torch.where(held, x, neg).amax(dim=1)       # NaN where a held score is NaN
+    hit = held & ((x == top[:, None]) | (torch.isnan(x) & torch.isnan(top)[:, None]))
+    local = torch.argmax(hit.to(torch.uint8), dim=1)  # the first hit
+    winner = torch.arange(G, device=dev)[None, :] == local[:, None]
+    vals[g0:g1] = x.gather(1, local[:, None])[:, 0]
+    idx[g0:g1] = torch.arange(g0, g1, device=dev) * G + local
+    second[g0:g1] = torch.where(held & ~winner, x, neg).amax(dim=1)
+    return vals, idx, second
+
+
+def fold_group_triples_plain(vals, idx, second):
+    """Plain torch version of :func:`fold_group_triples`."""
+    top = vals.amax(dim=0)                            # NaN where a block's max is NaN
+    hit = (vals == top) | (torch.isnan(vals) & torch.isnan(top))
+    win = torch.where(hit, idx, EMPTY_INDEX).amin(dim=0)
+    # the winning block: the first of the hits with the lowest index (several
+    # only where every triple is empty)
+    w = torch.argmax((hit & (idx == win)).to(torch.uint8), dim=0)
+    rows = torch.arange(vals.shape[0], device=vals.device)[:, None]
+    folded_second = torch.where(rows == w, second, vals).amax(dim=0)
+    return vals.gather(0, w[None, :])[0], win, folded_second
+
+
+def _check_triples(vals, idx, second) -> Tuple[int, int]:
+    """Checks D blocks' triples [D, k]; returns (D, k)."""
+    dev = vals.device
+    _tensor(vals, "vals", _FLOATS, 2, dev)
+    _tensor(idx, "idx", (torch.int64,), 2, dev)
+    _tensor(second, "second", (vals.dtype,), 2, dev)
+    if idx.shape != vals.shape or second.shape != vals.shape or vals.numel() == 0:
+        raise ValueError(f"triples of shapes {tuple(vals.shape)}, {tuple(idx.shape)} and "
+                         f"{tuple(second.shape)} are not one [D, k]")
+    D, k = vals.shape
+    if k > 2**31 // D:
+        raise ValueError(f"{D} x {k} triples is out of range")
+    return D, k
+
+
+def fold_group_triples(vals, idx, second):
+    """The merge of D mesh blocks' partial triples, each [D, k] (row i block
+    i's, as the partials wrappers write them): ``(vals [k], idx [k],
+    second [k])``, :func:`_group_argmax` over the whole batch."""
+    D, k = _check_triples(vals, idx, second)
+    if not _on_cuda(vals):
+        return fold_group_triples_plain(vals, idx, second)
+    out = _empty_triple(k, vals.device)
+    lib = _library()
+    _launch("topk_fold", vals.device, lib.topk_fold, vals.data_ptr(), idx.data_ptr(),
+            second.data_ptr(), D, k, *(t.data_ptr() for t in out))
+    return out
+
+
+def _partials_out(out, k: int, scores_like: torch.Tensor):
+    """Checks the ``out`` triple [k] of a partials wrapper (``None``: none)."""
+    if out is None:
+        return None
+    vals, idx, second = out
+    dev, dtype = scores_like.device, scores_like.dtype
+    _tensor(vals, "out vals", (dtype,), 1, dev)
+    _tensor(idx, "out idx", (torch.int64,), 1, dev)
+    _tensor(second, "out second", (dtype,), 1, dev)
+    if not vals.shape == idx.shape == second.shape == (k,):
+        raise ValueError(f"out must be three [{k}] tensors")
+    return out
+
+
+def _copied(got, out):
+    """``got`` copied into ``out`` where given (the plain partials)."""
+    if out is None:
+        return got
+    for dst, src in zip(out, got):
+        dst.copy_(src)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -443,16 +584,19 @@ def _check_combo(F_flat, idx4, cid, orients, c0) -> int:
     return n
 
 
-def _combo_launch(F_flat, idx4, cid, orients, c0, k: int, costs=None, topk=None) -> None:
+def _combo_launch(F_flat, idx4, cid, orients, c0, k: int, costs=None, topk=None, n0: int = 0,
+                  n_glob: int | None = None) -> None:
     """One ``combo_score_topk`` launch: the scores into ``costs`` (k = 0),
-    or the top-k outputs ``(vals, idx, second, parts)``."""
+    or the top-k outputs ``(vals, idx, second, parts)`` of candidates
+    [n0, n0 + Bo * R) of a batch of ``n_glob`` (default: this one)."""
     vals, idx, second, parts = (None,) * 4 if topk is None else topk
     ptrs = [None if t is None else t.data_ptr() for t in (parts, costs, vals, idx, second)]
+    n = cid.shape[0] * orients.shape[0]
     lib = _library()
     _launch("combo_score_topk", F_flat.device, lib.combo_score_topk,
             F_flat.data_ptr(), F_flat.numel(), idx4.data_ptr(), idx4.shape[0], cid.data_ptr(),
             cid.shape[0], orients.data_ptr(), orients.shape[0], orients.shape[1],
-            c0.data_ptr(), k, TOPK_TILE, *ptrs)
+            c0.data_ptr(), k, n0, n if n_glob is None else n_glob, TOPK_TILE, *ptrs)
 
 
 def combo_scores(F_flat, idx4, cid, orients, c0) -> torch.Tensor:
@@ -481,6 +625,31 @@ def combo_score_topk(F_flat, idx4, cid, orients, c0, k: int):
     topk = _topk_outputs(k, G, F_flat.device)
     _combo_launch(F_flat, idx4, cid, orients, c0, k, topk=topk)
     return topk[:3]
+
+
+def combo_score_topk_partials_plain(F_flat, idx4, cid, orients, c0, k: int, n0: int,
+                                    n_glob: int):
+    """Plain torch version of :func:`combo_score_topk_partials`."""
+    scores = combo_scores_plain(F_flat, idx4, cid, orients, c0).reshape(-1)
+    return _group_partials(scores, k, n0, n_glob)
+
+
+def combo_score_topk_partials(F_flat, idx4, cid, orients, c0, k: int, n0: int, n_glob: int,
+                              out=None):
+    """One mesh block's part of :func:`combo_score_topk`: its candidates are
+    [n0, n0 + Bo * R) of a batch of ``n_glob`` in ``k`` groups, and it
+    returns every group's partial triple ``(vals [k], idx [k], second [k])``
+    over them (global indices; see :func:`fold_group_triples`), written
+    into ``out`` where given.  No score reaches device memory."""
+    n = _check_combo(F_flat, idx4, cid, orients, c0)
+    G, span = _partial_span(n, k, n0, n_glob)
+    out = _partials_out(out, k, F_flat)
+    if not _on_cuda(F_flat):
+        return _copied(combo_score_topk_partials_plain(F_flat, idx4, cid, orients, c0, k, n0,
+                                                       n_glob), out)
+    topk = _topk_outputs(k, G, F_flat.device, span, out)
+    _combo_launch(F_flat, idx4, cid, orients, c0, k, topk=topk, n0=n0, n_glob=n_glob)
+    return topk[:3] if out is None else out
 
 
 # ---------------------------------------------------------------------------
@@ -564,10 +733,11 @@ def block_halves(S: int, R: int) -> bool:
 
 
 def _block_launch(Cp1: int, F_flat, sizes, orders, orients, c0, k: int, tile: int, costs=None,
-                  topk=None) -> None:
+                  topk=None, n0: int = 0, n_glob: int | None = None) -> None:
     """One ``block_score`` launch on a table of width ``Cp1``: the scores
     into ``costs`` (k = 0), or the top-k outputs ``(vals, idx, second,
-    parts)``."""
+    parts)`` of candidates [n0, n0 + Bo * R) of a batch of ``n_glob``
+    (default: this one)."""
     vals, idx, second, parts = (None,) * 4 if topk is None else topk
     ptrs = [None if t is None else t.data_ptr() for t in (parts, costs, vals, idx, second)]
     Bo, S = orders.shape
@@ -575,7 +745,8 @@ def _block_launch(Cp1: int, F_flat, sizes, orders, orients, c0, k: int, tile: in
     lib = _library()
     _launch("block_score", F_flat.device, lib.block_score,
             F_flat.data_ptr(), Cp1, sizes.data_ptr(), sizes.shape[0], orders.data_ptr(), Bo, S,
-            orients.data_ptr(), R, int(block_halves(S, R)), c0.data_ptr(), k, tile, *ptrs)
+            orients.data_ptr(), R, int(block_halves(S, R)), c0.data_ptr(), k, n0,
+            Bo * R if n_glob is None else n_glob, tile, *ptrs)
 
 
 def block_scores(F_flat, sizes, orders, orients, c0) -> torch.Tensor:
@@ -602,6 +773,29 @@ def block_score_topk(F_flat, sizes, orders, orients, c0, k: int):
     topk = _topk_outputs(k, G, F_flat.device)
     _block_launch(Cp1, F_flat, sizes, orders, orients, c0, k, TOPK_TILE, topk=topk)
     return topk[:3]
+
+
+def block_score_topk_partials_plain(F_flat, sizes, orders, orients, c0, k: int, n0: int,
+                                    n_glob: int):
+    """Plain torch version of :func:`block_score_topk_partials`."""
+    scores = block_scores_plain(F_flat, sizes, orders, orients, c0).reshape(-1)
+    return _group_partials(scores, k, n0, n_glob)
+
+
+def block_score_topk_partials(F_flat, sizes, orders, orients, c0, k: int, n0: int, n_glob: int,
+                              out=None):
+    """One mesh block's part of :func:`block_score_topk`, as
+    :func:`combo_score_topk_partials` is of :func:`combo_score_topk`."""
+    Cp1, n = _check_block(F_flat, sizes, orders, orients, c0)
+    G, span = _partial_span(n, k, n0, n_glob)
+    out = _partials_out(out, k, F_flat)
+    if not _on_cuda(F_flat):
+        return _copied(block_score_topk_partials_plain(F_flat, sizes, orders, orients, c0, k, n0,
+                                                       n_glob), out)
+    topk = _topk_outputs(k, G, F_flat.device, span, out)
+    _block_launch(Cp1, F_flat, sizes, orders, orients, c0, k, TOPK_TILE, topk=topk, n0=n0,
+                  n_glob=n_glob)
+    return topk[:3] if out is None else out
 
 
 # ---------------------------------------------------------------------------

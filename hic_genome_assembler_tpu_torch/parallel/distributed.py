@@ -27,7 +27,12 @@ from hic_genome_assembler_tpu_torch.io import filebus
 def init_distributed() -> Tuple[int, int]:
     """Join the process group when ``WORLD_SIZE`` > 1; return
     ``(process_index, process_count)``.  A single process returns
-    ``(0, 1)`` and creates no group."""
+    ``(0, 1)`` and creates no group.
+
+    A rank can leave ``init_process_group`` while a peer is still finishing
+    gloo's full-mesh handshake; had it shut down at once, the peer's connect
+    would fail ("Connection closed by peer").  The barrier returns only when
+    every rank's connections are up."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
         return 0, 1
@@ -37,6 +42,7 @@ def init_distributed() -> Tuple[int, int]:
         dist.init_process_group(
             "gloo", init_method="env://", rank=int(os.environ["RANK"]), world_size=world
         )
+        dist.barrier()
     return dist.get_rank(), dist.get_world_size()
 
 

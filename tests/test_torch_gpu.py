@@ -149,6 +149,31 @@ def test_counts_on_blocks_over_two_cards():
         np.testing.assert_array_equal(sharded.fixed(s, c), local.fixed(s, c))
 
 
+def test_mesh_topk_over_two_cards():
+    """The mesh top-k paths with blocks on cuda:1: each block's partial
+    triples are copied to the scorer's card (cuda:0) and folded there; the
+    selection equals one card's (no mesh padding: the same groups)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs and nvcc")
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    torch.cuda.set_device(cards[0])
+    rng = np.random.default_rng(8)
+    m = np.triu(rng.integers(0, 9, (40, 40)).astype(np.float64), 1)
+    sizes = [9, 8, 7, 6, 5, 5]
+    mesh = pm.make_mesh((2, 1), cards)
+    local = cost.ChromosomeScorer(m + m.T, sizes, cards[0]).full()
+    sharded = cost.ChromosomeScorer(m + m.T, sizes, cards[0], mesh=mesh).full()
+    orders, orients = perms.order_batch(6), perms.orient_batch(6)
+    before = dict(sk.LAUNCHES)
+    got = sharded.score_batch_topk(orders, orients, k=7)
+    assert sk.LAUNCHES["combo_score_topk"] == before["combo_score_topk"] + 2
+    assert sk.LAUNCHES["topk_fold"] == before["topk_fold"] + 1
+    want = local.score_batch_topk(orders, orients, k=7)
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a, b)
+    assert got[2] == want[2]
+
+
 def _cli_genome(tmp_path):
     genome = fixtures.make_genome(
         chrom_scaffold_bins=((14, 12, 10, 8, 6), (12, 11, 9, 8), (10, 9, 8, 6)),
@@ -505,6 +530,99 @@ def test_combo_topk_kernel_matches_plain(cuda, S, k, kind):
     flat = scores.reshape(-1)
     assert all(torch.equal(a, b) for a, b in zip(sk.group_argmax(flat, k),
                                                  sk._group_argmax(flat, k)))
+
+
+def _mesh_blocks(args, D, rows_arg):
+    """``args`` with the candidate rows (argument ``rows_arg``) split into D
+    equal blocks, as a mesh's data axis splits them."""
+    rows = args[rows_arg]
+    n = rows.shape[0] // D
+    out = []
+    for i in range(D):
+        blk = list(args)
+        blk[rows_arg] = rows[i * n:(i + 1) * n].contiguous()
+        out.append(blk)
+    return out
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["combo", "block"])
+def test_mesh_partials_and_fold_match_plain(cuda, monkeypatch, form, D):
+    """Each of D mesh blocks' partial triples (``TOPK_TILE`` 100: a group
+    spans several tiles inside a block, and k = 7 and 64 groups cross the
+    blocks' edges) equals its plain version bit for bit on integer scores,
+    and the fold equals the plain fold and ``_group_argmax`` of the gathered
+    plain scores; D launches and one fold."""
+    monkeypatch.setattr(sk, "TOPK_TILE", 100)
+    rng = np.random.default_rng(D)
+    if form == "combo":
+        S = 6
+        combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+        F = torch.from_numpy(rng.integers(0, 5, 9 * 9 * 4 * 65).astype(np.float32)).to(cuda)
+        args = [F, torch.from_numpy(rng.integers(0, F.numel(), (combo["n_combo"], 4))).to(cuda),
+                torch.from_numpy(np.ascontiguousarray(combo["cid"], dtype=np.int32)).to(cuda),
+                torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda),
+                torch.tensor(3.0, device=cuda)]
+        wrapper, plain, scores, launch = (sk.combo_score_topk_partials,
+                                          sk.combo_score_topk_partials_plain,
+                                          sk.combo_scores_plain, "combo_score_topk")
+    else:
+        S = 5
+        ids = rng.permutation(55)[:S]
+        args = _block_args(cuda, rng, "int", ids[perms.order_batch(S)], perms.orient_batch(S))
+        wrapper, plain, scores, launch = (sk.block_score_topk_partials,
+                                          sk.block_score_topk_partials_plain,
+                                          sk.block_scores_plain, "block_score")
+    blocks = _mesh_blocks(args, D, 2)
+    n = blocks[0][2].shape[0] * args[3].shape[0]
+    n_glob = D * n
+    gathered = torch.cat([scores(*blk).reshape(-1) for blk in blocks])
+    for k in (7, 64):
+        before = dict(sk.LAUNCHES)
+        stacked = sk.empty_triples(D, k, torch.float32, cuda)
+        for i, blk in enumerate(blocks):
+            row = tuple(t[i] for t in stacked)
+            assert wrapper(*blk, k, i * n, n_glob, out=row) is row
+            again = wrapper(*blk, k, i * n, n_glob)
+            assert all(torch.equal(a, b) for a, b in zip(row, again))
+            assert all(torch.equal(a, b) for a, b in zip(row, plain(*blk, k, i * n, n_glob)))
+        got = sk.fold_group_triples(*stacked)
+        assert sk.LAUNCHES[launch] == before[launch] + 2 * D
+        assert sk.LAUNCHES["topk_fold"] == before["topk_fold"] + 1
+        for a, b, c in zip(got, sk.fold_group_triples_plain(*stacked),
+                           sk._group_argmax(gathered, k)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("form", ["combo", "block"])
+def test_one_device_topk_keeps_its_bits_as_partials(cuda, form):
+    """With n0 = 0 and the batch its own (n_glob = N), the partials form is
+    the one-device launch: the same bits, one launch each (k = 64, 7 and
+    3: groups of one and of several tiles)."""
+    rng = np.random.default_rng(11)
+    if form == "combo":
+        S = 8
+        combo = cost._combo_index(perms.order_batch(S).astype(np.int64))
+        F = torch.from_numpy(rng.integers(0, 3, 9 * 9 * 4 * 65).astype(np.float32)).to(cuda)
+        args = [F, torch.from_numpy(rng.integers(0, F.numel(), (combo["n_combo"], 4))).to(cuda),
+                torch.from_numpy(np.ascontiguousarray(combo["cid"][:700], dtype=np.int32)
+                                 ).to(cuda),
+                torch.from_numpy(np.array(perms.orient_batch(S))).to(cuda),
+                torch.tensor(3.0, device=cuda)]
+        whole, partials, launch = sk.combo_score_topk, sk.combo_score_topk_partials, \
+            "combo_score_topk"
+    else:
+        S = 6
+        ids = rng.permutation(55)[:S]
+        args = _block_args(cuda, rng, "int", ids[perms.order_batch(S)], perms.orient_batch(S))
+        whole, partials, launch = sk.block_score_topk, sk.block_score_topk_partials, \
+            "block_score"
+    n = args[2].shape[0] * args[3].shape[0]
+    for k in (64, 7, 3):
+        before = sk.LAUNCHES[launch]
+        got, want = partials(*args, k, 0, n), whole(*args, k)
+        assert sk.LAUNCHES[launch] == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _block_args(cuda, rng, kind, orders, orients):

@@ -422,6 +422,31 @@ def test_mesh_chunked_topk_scores(shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
+def test_mesh_topk_groups_straddle_blocks(shape):
+    """Groups that start in one data-axis block and end in the next (the
+    combo path at k = 7: G = 37 or 28 candidates against blocks of 32 or 48;
+    the chunked path at k = 5: G = 10 against blocks of 6 or 12): the folded
+    partial triples give the JAX mesh scorer's selection."""
+    local, ours, theirs = (s.full() for s in _scorers(shape, 2, (5, 4, 3, 2)))
+    orders, orients = perms.order_batch(4), perms.orient_batch(4)
+    idx, vals, floor = ours.score_batch_topk(orders, orients, k=7)
+    idx_j, vals_j, floor_j = theirs.score_batch_topk(orders, orients, k=7)
+    np.testing.assert_array_equal(idx, idx_j)
+    _close(vals, vals_j)
+    _close(vals, ours.score_batch(orders, orients)[idx])
+    assert floor == pytest.approx(floor_j, rel=F64_RTOL)
+    nine = [s.full() for s in _scorers(shape, 4, (5, 4, 3, 3, 2, 2, 2, 1, 1))]
+    rng = np.random.default_rng(6)
+    orders9 = np.stack([rng.permutation(9) for _ in range(13)])
+    orients9 = rng.integers(0, 2, (6, 9)).astype(np.int32)
+    idx, vals, floor = nine[1].score_batch_topk(orders9, orients9, k=5, chunk_orders=8)
+    idx_j, vals_j, floor_j = nine[2].score_batch_topk(orders9, orients9, k=5, chunk_orders=8)
+    np.testing.assert_array_equal(idx, idx_j)
+    _close(vals, vals_j)
+    assert floor == pytest.approx(floor_j, rel=F64_RTOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_mesh_pair_scores_batch_of_13(shape):
     local, ours, theirs = _scorers(shape, 1, (5, 4, 3, 2))
     rng = np.random.default_rng(2)

@@ -356,7 +356,7 @@ def test_every_entry_point_has_its_ctypes_signature():
         entries.update(_entry_points((REPO / "hic_genome_assembler_tpu_torch" / "csrc" / cu)
                                      .read_text()))
     assert set(entries) == set(_build.SIGNATURES)
-    assert {"pair_profiles", "combo_score_topk", "group_topk", "block_score",
+    assert {"pair_profiles", "combo_score_topk", "group_topk", "topk_fold", "block_score",
             "pair_score"} <= set(entries)
     for name, params in entries.items():
         want = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
