@@ -34,11 +34,19 @@ passes or fails the run:
    Then -part2 with -device cpu (the plain versions) on the same part-1
    files: its chromosomeOrdering.txt and plotOrder.txt must be byte-equal
    to the card's.  Last, -part2 on the card again under torch.profiler:
-   device busy and idle shares, pageable host-to-device copies, the
-   kernels with most device time; then -part1 the same way: part 1's
-   device busy share and the rank-count kernel's device time.  Output in
+   device busy and idle shares, its copies by direction and host memory
+   (none may touch pageable memory: every upload and readback of part 2
+   goes through pinned memory, ``utils/transfer``), the kernels with most
+   device time; then -part1 the same way: part 1's device busy share and
+   the rank-count kernel's device time.  Output in
    build/chip_smoke_pipeline.log, build/chip_smoke_part2_cpu.log,
    build/chip_smoke_part2_profile.log and build/chip_smoke_part1_profile.log;
+4c. copy turns: -part2 on phase 4's part-1 files four times in this
+   process, the new copies and the parent's (pageable uploads, a blocking
+   .cpu() a handle at the drain, patched in by ``parent_copies``) in turns
+   new, old, old, new: each run's part-2 wall, scheduler_readback_wait and
+   host_decide timers, and its files, byte-equal to phase 4's.  Output in
+   build/chip_smoke_turn{0..3}.log;
 4b. replay: every rank-count batch of phase 4, in order, on phase 3's
    random matrix padded as RankCounts pads it (17,184), in int16 and int32:
    each output equal to the plain version, then each batch's device time
@@ -127,9 +135,14 @@ passes or fails the run:
    localhost port) share the card on phase 4's part-1 files; the merged
    chromosomeOrdering.txt and plotOrder.txt must be byte-equal to phase 4's,
    and each process prints its scoring kernels' launches, which must cover
-   the three of its shard's path and sum to phase 4's.  Output in build/chip_smoke_ep{0,1}.log.
+   the three of its shard's path and sum to phase 4's.  Output in build/chip_smoke_ep{0,1}.log;
+11. working example: examples/working_example_torch.py --device cuda on a
+   copy of its committed config with the workdir in this run's temporary
+   directory, through its truth check; it must launch the profile, combo
+   (S = 4) and pair-score kernels and no plain scoring version on the
+   card.  Output in build/chip_smoke_working_example.log.
 
-Each of phases 4, 5b (each forced escalation), 6, 7 and 9 sets the launch
+Each of phases 4, 5b (each forced escalation), 6, 7, 9 and 11 sets the launch
 counts of its kernels to 0 just before it drives its path and fails if a
 kernel of that path was not launched; phase 10's processes start from 0.
 Phase 1 prints the card's nvidia-smi name and power limit, and phases 3,
@@ -211,6 +224,13 @@ SCORE_W = 56                       # its candidate width (55 scaffolds rounded u
 SCORE_LOG = REPO / "build" / "chip_smoke_part2_cpu.log"
 PROFILE_LOG = REPO / "build" / "chip_smoke_part2_profile.log"
 PART1_PROFILE_LOG = REPO / "build" / "chip_smoke_part1_profile.log"
+TURNS_LOG = str(REPO / "build" / "chip_smoke_turn{}.log")
+COPY_TURNS = ("new", "old", "old", "new")    # 4c: part 2's copies, new and the parent's
+EXAMPLE_LOG = REPO / "build" / "chip_smoke_working_example.log"
+EXAMPLE_SCRIPT = REPO / "examples" / "working_example_torch.py"
+EXAMPLE_CONFIG = REPO / "configs" / "hicAssembler_config_fixtureExample_torch.txt"
+EXAMPLE_WORKDIR = "/tmp/hic_working_example_torch"   # the committed config's
+EXAMPLE_S = 4                      # its nScaffolds: the combo launches' S
 BATCHES_LOG = REPO / "build" / "chip_smoke_rank_batches.json"  # phase 4's rank-count batches
 REPLAY_REPS = 3                    # device-timed launches of each replayed batch
 # The previous kernels' times at the same shapes, printed beside this run's
@@ -827,9 +847,11 @@ def phase_part2_profile(torch, workdir, main_dir, paths, resolution):
     """Part 2 on the card again, on phase 4's part-1 files, under
     torch.profiler (CUDA activity only): the device time its kernels and
     copies take against the run's wall (busy and idle shares; one stream,
-    so the device intervals barely overlap), the count of pageable
-    host-to-device copies, and the kernels that take most device time.
-    Its files must equal phase 4's."""
+    so the device intervals barely overlap), its copies by direction and
+    host memory, and the kernels that take most device time.  Its files
+    must equal phase 4's, and no copy may touch pageable host memory:
+    every upload and readback goes through pinned memory
+    (``utils/transfer``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from hic_genome_assembler_tpu_torch import cli
@@ -847,12 +869,22 @@ def phase_part2_profile(torch, workdir, main_dir, paths, resolution):
               f"profiled part 2: {name} differs from phase 4's")
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    pageable = sum(e.count for e in events if "HtoD" in e.key and "Pageable" in e.key)
+    copies = {(way, mem): [0, 0.0] for way in ("HtoD", "DtoH") for mem in ("Pageable", "Pinned")}
+    for e in events:
+        for (way, mem), tally in copies.items():
+            if way in e.key and mem in e.key:
+                tally[0] += e.count
+                tally[1] += e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     print(f"profiled part 2 on {CARD}: wall {wall_ms:.0f} ms (profiler on), device busy "
-          f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}%; {pageable} pageable "
-          f"host-to-device copies; most device time: " + "; ".join(
+          f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}%; copies "
+          + ", ".join(f"{way} {mem} {n} ({ms:.1f} ms)" for (way, mem), (n, ms) in copies.items())
+          + "; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
+    check(copies["HtoD", "Pageable"][0] == 0 and copies["DtoH", "Pageable"][0] == 0,
+          f"part 2 copied through pageable host memory: {copies}")
+    check(copies["HtoD", "Pinned"][0] > 0 and copies["DtoH", "Pinned"][0] > 0,
+          f"part 2's profile shows no pinned copy both ways: {copies}")
 
 
 def phase_part1_profile(torch, workdir, paths, resolution, exact_cuts):
@@ -888,6 +920,143 @@ def phase_part1_profile(torch, workdir, paths, resolution, exact_cuts):
           + "; most device time: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
     return rank_ms if measured else None
+
+
+@contextlib.contextmanager
+def parent_copies():
+    """Part 2's copies as the parent commit made them, patched into
+    ``utils/transfer`` for the turns of phase 4c: pageable uploads
+    (``torch.from_numpy(...).to(device)``, ``dst.copy_(src)``) and readbacks
+    that start nothing and take a blocking ``.cpu()`` a handle at the drain.
+    Yields the count of calls of each patched function."""
+    import numpy as np
+    import torch
+
+    from hic_genome_assembler_tpu_torch.utils import transfer
+
+    calls = {"to_device": 0, "copy_into": 0, "finish_readback": 0}
+
+    class Blocking:
+        def __init__(self, handles, into):
+            self.handles, self.into = list(handles), into
+
+    def pageable_to_device(a, device, dtype=None):
+        calls["to_device"] += 1
+        if isinstance(a, torch.Tensor):
+            t = a if dtype is None else a.to(transfer.torch_dtype(dtype))
+        else:
+            t = torch.from_numpy(np.require(a, dtype, ["C", "W"]))
+        return t.to(device)
+
+    def pageable_copy_into(dst, src):
+        calls["copy_into"] += 1
+        return dst.copy_(torch.from_numpy(src) if isinstance(src, np.ndarray) else src)
+
+    def blocking_finish(readbacks):
+        calls["finish_readback"] += 1
+        return [[h.cpu().numpy() for h in r.handles] if r.into is None else
+                [d.copy_(h).numpy() for d, h in zip(r.into, r.handles)] for r in readbacks]
+
+    patched = {"to_device": pageable_to_device, "copy_into": pageable_copy_into,
+               "start_readback": lambda handles, into=None: Blocking(handles, into),
+               "finish_readback": blocking_finish}
+    originals = {name: getattr(transfer, name) for name in patched}
+    for name, fn in patched.items():
+        setattr(transfer, name, fn)
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(transfer, name, fn)
+
+
+def part2_timer(log_path, name):
+    """(seconds, calls) of part 2's ``[timer] part2/<name>`` line in a log."""
+    with open(log_path) as log:
+        found = re.findall(rf"^\[timer\] part2/{name}: ([0-9.]+)s over (\d+) call",
+                           log.read(), flags=re.M)
+    check(found, f"no part2/{name} timer in {log_path}")
+    return float(found[-1][0]), int(found[-1][1])
+
+
+def phase_part2_turns(torch, workdir, main_dir, paths, resolution, turns=COPY_TURNS,
+                      log_path=TURNS_LOG, around=None):
+    """4c: part 2 on phase 4's part-1 files once for each of ``turns``, in
+    this process: "new" copies and the parent's ("old", patched in by
+    ``parent_copies``).  Prints each run's part-2 wall, its
+    ``scheduler_readback_wait`` and ``host_decide`` timers, and checks its
+    files, which must equal phase 4's (the first run's where ``main_dir``
+    holds no part-2 files).  ``around(k, mode)``, where given, makes a
+    context manager entered around run ``k``'s part 2 (a profiler, in
+    ``tools/part2_host_profile.py``).  Returns each run's numbers."""
+    from hic_genome_assembler_tpu_torch import cli
+
+    ref = os.path.join(main_dir, "files")
+    if not all(os.path.exists(os.path.join(ref, name)) for name in PART2_FILES):
+        ref = os.path.join(workdir, f"0_{turns[0]}", "files")
+    runs = []
+    for k, mode in enumerate(turns):
+        config = part2_config(os.path.join(workdir, f"{k}_{mode}"), main_dir, paths, resolution)
+        patch = parent_copies() if mode == "old" else contextlib.nullcontext(None)
+        hook = contextlib.nullcontext() if around is None else around(k, mode)
+        with open(log_path.format(k), "w") as log, contextlib.redirect_stdout(log), \
+                patch as calls, hook:
+            cli.main(["-part2", "-config", config, "-device", "cuda", "-mesh", "off"])
+            torch.cuda.synchronize()
+        if calls is not None:
+            check(calls["to_device"] > 0 and calls["finish_readback"] > 0,
+                  f"the parent's copies were not patched in: {calls}")
+        same = {name: filecmp.cmp(os.path.join(workdir, f"{k}_{mode}", "files", name),
+                                  os.path.join(ref, name), shallow=False)
+                for name in PART2_FILES}
+        wait, decide = (part2_timer(log_path.format(k), name)
+                        for name in ("scheduler_readback_wait", "host_decide"))
+        wall = part2_wall(log_path.format(k))
+        print(f"copy turn {k + 1} ({mode} copies) on {CARD}: part-2 wall "
+              f"{wall} s; scheduler_readback_wait {wait[0]} s over "
+              f"{wait[1]} calls; host_decide {decide[0]} s over {decide[1]} calls; byte-equal to "
+              f"phase 4's: {json.dumps(same)}"
+              + (f"; parent's copies patched in: {json.dumps(calls)}" if calls else ""))
+        check(all(same.values()), f"copy turn {k + 1} ({mode}): files differ from phase 4's")
+        runs.append({"run": k + 1, "copies": mode, "part2_wall_s": wall,
+                     "readback_wait_s": wait[0], "host_decide_s": decide[0],
+                     "host_decide_calls": decide[1]})
+    return runs
+
+
+def phase_working_example(torch, workdir):
+    """11: ``examples/working_example_torch.py --device cuda`` through its
+    truth check, on a copy of the committed config whose workdir lies in
+    ``workdir``: it must launch the profile, combo (S = 4) and pair-score
+    kernels and run no plain scoring version on the card."""
+    import importlib.util
+
+    config = os.path.join(workdir, "config.txt")
+    os.makedirs(workdir, exist_ok=True)
+    with open(config, "w") as handle:
+        handle.write(EXAMPLE_CONFIG.read_text().replace(EXAMPLE_WORKDIR, workdir))
+    spec = importlib.util.spec_from_file_location("working_example_torch", EXAMPLE_SCRIPT)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with plain_scorers_on_cuda() as plain_calls, score_input_recorder() as record:
+        reset_launches()
+        t0 = time.time()
+        with open(EXAMPLE_LOG, "w") as log, contextlib.redirect_stdout(log):
+            example.main(["--device", "cuda", "--config", config])
+        seconds = time.time() - t0
+        scoring = score_launches()
+    text = EXAMPLE_LOG.read_text()
+    combo_s = sorted({args[3].shape[1] for args in record["combo_score_topk"]})
+    print(f"working example on {CARD}: {seconds:.1f} s; scoring kernel launches "
+          f"{json.dumps(scoring)}; combo S {combo_s}; "
+          + "; ".join(line for line in text.splitlines()
+                      if line.startswith(("chromosome groups match", "assembled entries"))))
+    check("chromosome groups match planted truth: True" in text,
+          "the working example failed its truth check")
+    check(all(scoring[name] > 0 for name in ("pair_profiles", "combo_score_topk", "pair_score")),
+          f"the working example left a scoring kernel unlaunched: {scoring}")
+    check(combo_s == [EXAMPLE_S], f"the working example's combo launches ran at S {combo_s}")
+    check(not any(plain_calls.values()), f"a plain scoring version ran on the card: {plain_calls}")
 
 
 def phase_replay(torch, np, record):
@@ -2250,6 +2419,7 @@ def main():
          score_inputs) = phase_main_path(torch, main_dir)
         phase_part2_cpu(os.path.join(workdir, "cpu"), main_dir, paths, resolution)
         phase_part2_profile(torch, os.path.join(workdir, "profile"), main_dir, paths, resolution)
+        phase_part2_turns(torch, os.path.join(workdir, "turns"), main_dir, paths, resolution)
         record["main_path_device_ms"] = phase_part1_profile(
             torch, os.path.join(workdir, "profile1"), paths, resolution, exact_cuts)
         record["replay"] = phase_replay(torch, np, batches)
@@ -2270,6 +2440,7 @@ def main():
         record["mesh_launches"], mesh_scoring = phase_mesh_path(
             torch, os.path.join(workdir, "mesh"), main_dir, paths, resolution)
         ep_launches = phase_ep(os.path.join(workdir, "ep"), main_dir, paths, resolution)
+        phase_working_example(torch, os.path.join(workdir, "example"))
     for rec in hmm_records:
         rec["launches"] = hmm_launches[rec["name"]]
     for name, rec in score_records.items():

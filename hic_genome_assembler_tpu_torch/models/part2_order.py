@@ -11,7 +11,10 @@ the run's ``PrecisionStats`` (carried by the ``ChromosomeScorer``): a
 coroutine yields a tuple of launched device tensors and receives their
 numpy copies.  ``_run_interleaved`` advances many chromosomes round-robin
 so that one chromosome's device work overlaps the others' host decisions;
-decisions are exactly the serial ones.
+decisions are exactly the serial ones.  Every copy between the host and
+the card goes through ``utils/transfer``: uploads from pinned memory
+without waiting, readbacks started as soon as a coroutine yields and
+waited for once per device and pass.
 
 With a mesh (``parallel.mesh.Mesh``) the genome matrix is staged as
 ``(data, model)`` blocks and candidate batches are split over the data
@@ -36,7 +39,7 @@ from hic_genome_assembler_tpu_torch.ops import cost as cost_ops
 from hic_genome_assembler_tpu_torch.ops import perms
 from hic_genome_assembler_tpu_torch.parallel import distributed
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
-from hic_genome_assembler_tpu_torch.utils import plots, profiling
+from hic_genome_assembler_tpu_torch.utils import plots, profiling, transfer
 
 
 @dataclass
@@ -133,19 +136,15 @@ class _ChromosomeContext:
                 csel = np.nonzero(idx // cb == j)[0]
                 if not csel.size:
                     continue
-                rloc = torch.from_numpy(idx[rsel] - i * rb).to(blk.device)
-                cloc = torch.from_numpy(idx[csel] - j * cb).to(blk.device)
+                rloc = transfer.to_device(idx[rsel] - i * rb, blk.device)
+                cloc = transfer.to_device(idx[csel] - j * cb, blk.device)
                 piece = blk.index_select(0, rloc).index_select(1, cloc).to(self.device)
                 if rsel.size == csel.size == idx.size:
                     return piece  # one block holds every requested bin
-                r_d = torch.from_numpy(rsel).to(self.device)
-                c_d = torch.from_numpy(csel).to(self.device)
+                r_d = transfer.to_device(rsel, self.device)
+                c_d = transfer.to_device(csel, self.device)
                 out[r_d[:, None], c_d[None, :]] = piece
         return out
-
-
-def _to_host(handles) -> list:
-    return [h.cpu().numpy() for h in handles]
 
 
 def _drive(gen):
@@ -153,8 +152,9 @@ def _drive(gen):
     try:
         handles = next(gen)
         while True:
+            pending = transfer.start_readback(handles)
             with profiling.timer("part2/scheduler_readback_wait"):
-                host = _to_host(handles)
+                (host,) = transfer.finish_readback([pending])
             handles = gen.send(host)
     except StopIteration as e:
         return e.value
@@ -165,10 +165,14 @@ def _run_interleaved(coros: List, max_live: Optional[int] = None) -> List:
 
     At most ``max_live`` chromosomes are in flight (default 10, env
     HIC_INTERLEAVE_WINDOW): each live search keeps its pair table and
-    candidate batches on the device.  Each pass reads back every live
-    coroutine's pending tensors (a blocking copy per tensor; later copies
-    of a pass find their work done), then advances each coroutine with
-    its own values.  A coroutine's control flow depends only on what it
+    candidate batches on the device.  A coroutine's readback starts as
+    soon as it yields (``transfer.start_readback``: copies into pinned
+    host memory, queued behind its kernels, as the JAX package's
+    ``_host_async``), so the card copies while the host advances the
+    others.  Each pass then waits for every live coroutine's readbacks
+    with one fence per device (``transfer.finish_readback``, the JAX
+    package's one ``device_get``), and advances each coroutine with its
+    own values.  A coroutine's control flow depends only on what it
     receives, so decisions are exactly the serial ones.
     """
     if max_live is None:
@@ -184,7 +188,7 @@ def _run_interleaved(coros: List, max_live: Optional[int] = None) -> List:
             i = next_up
             next_up += 1
             try:
-                pending[i] = next(coros[i])
+                pending[i] = transfer.start_readback(next(coros[i]))
                 live.append(i)
             except StopIteration as e:
                 results[i] = e.value
@@ -194,11 +198,12 @@ def _run_interleaved(coros: List, max_live: Optional[int] = None) -> List:
         batch = list(live)
         live.clear()
         with profiling.timer("part2/scheduler_readback_wait"):
-            all_host = [_to_host(pending[i]) for i in batch]
+            all_host = transfer.finish_readback([pending[i] for i in batch])
         for i, host in zip(batch, all_host):
             try:
                 with profiling.timer("part2/host_decide"):
-                    pending[i] = coros[i].send(host)
+                    handles = coros[i].send(host)
+                pending[i] = transfer.start_readback(handles)
                 live.append(i)
             except StopIteration as e:
                 results[i] = e.value

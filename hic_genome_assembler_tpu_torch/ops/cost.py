@@ -47,6 +47,7 @@ from hic_genome_assembler_tpu_torch.ops.score_kernels import (  # noqa: F401
     group_argmax as _group_argmax,  # the JAX module's name (ops/cost.py:251); no caller here
 )
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
+from hic_genome_assembler_tpu_torch.utils import transfer
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -187,27 +188,17 @@ def _combo_index(orders: np.ndarray) -> dict:
     return out
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
-
-
 def _drain_rows(parts: Sequence[Tuple[int, int, torch.Tensor]], shape) -> np.ndarray:
     """The rows ``t[:n]`` of each ``(ofs, n, t)`` at ``out[ofs : ofs + n]``
-    of a host float64 array of ``shape``.  CUDA tensors are copied into one
-    pinned buffer without waiting, and each card's stream is synchronised
-    once at the end, where a pageable ``.cpu()`` a tensor would wait for
-    each."""
-    cuda = [t for _ofs, _n, t in parts if t.device.type == "cuda"]
-    if not cuda:
-        out = np.empty(shape, dtype=np.float64)
-        for ofs, n, t in parts:
-            out[ofs : ofs + n] = t[:n].numpy()
-        return out
-    buf = torch.empty(shape, dtype=cuda[0].dtype, pin_memory=True)
-    for ofs, n, t in parts:
-        buf[ofs : ofs + n].copy_(t[:n], non_blocking=True)
-    for dev in {t.device for t in cuda}:
-        torch.cuda.current_stream(dev).synchronize()
+    of a host float64 array of ``shape``.  The rows are read back into one
+    host buffer (pinned for CUDA tensors) without waiting, and each card
+    is waited for once at the end (``utils/transfer``), where a pageable
+    ``.cpu()`` a tensor would wait for each."""
+    pinned = any(t.device.type == "cuda" for _ofs, _n, t in parts)
+    buf = torch.empty(shape, dtype=parts[0][2].dtype, pin_memory=pinned)
+    transfer.finish_readback([transfer.start_readback(
+        [t[:n] for _ofs, n, t in parts], into=[buf[ofs : ofs + n] for ofs, n, _t in parts]
+    )])
     return buf.numpy().astype(np.float64)
 
 
@@ -280,11 +271,11 @@ class ChromosomeScorer:
 
         dev = self.device
         if device_sub is None:
-            device_sub = torch.from_numpy(sub.astype(self._dtype)).to(dev)
+            device_sub = transfer.to_device(sub, dev, self._dtype)
         device_sub = device_sub.to(dev, tdtype).contiguous()
         sizes_padded = np.zeros(self.Sp, dtype=np.int64)
         sizes_padded[: self.S] = self.sizes
-        self._sizes_d = torch.from_numpy(sizes_padded).to(dev)
+        self._sizes_d = transfer.to_device(sizes_padded, dev)
         self._h = sk.pair_profiles(device_sub, self._sizes_d, self.cmax)
 
     @property
@@ -337,20 +328,20 @@ class SubsetScorer:
         wpad[1 : self.C_sub] = self.w[1 : self.C_sub]
         F = _profiles_to_table(
             parent._h,
-            torch.from_numpy(wpad.astype(parent._dtype)).to(self.device),
+            transfer.to_device(wpad, self.device, parent._dtype),
             parent.cmax - 1,
             self.C,
         )
         self._F_flat = F.reshape(-1)
         self._sizes_d = parent._sizes_d
-        self._c0_d = torch.tensor(self.c0, dtype=self._F_flat.dtype, device=self.device)
+        self._c0_d = transfer.to_device(np.array(self.c0, dtype=parent._dtype), self.device)
         self._mesh = parent._mesh
         self._F_r, self._sizes_r, self._c0_r = (
             self._rep(t) for t in (self._F_flat, self._sizes_d, self._c0_d)
         )
 
     def _put(self, a: np.ndarray, dtype=np.int64) -> torch.Tensor:
-        return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(self.device)
+        return transfer.to_device(a, self.device, dtype)
 
     @property
     def _data_devices(self) -> List[torch.device]:
@@ -433,7 +424,7 @@ class SubsetScorer:
         handles, finish = self.score_batch_topk_async(
             orders, orients, k=k, chunk_orders=chunk_orders
         )
-        return finish([_host(h) for h in handles])
+        return finish(transfer.to_host(handles))
 
     def score_batch_topk_async(
         self,
@@ -584,7 +575,7 @@ class SubsetScorer:
         and ``orients`` are int[B, W] (global ids; ``pad_id`` fills unused
         slots)."""
         handles, finish = self.score_pairs_async(orders, orients)
-        return finish([_host(h) for h in handles])
+        return finish(transfer.to_host(handles))
 
     def score_pairs_async(self, orders: np.ndarray, orients: np.ndarray):
         """Dispatch-only form of :meth:`score_pairs`."""

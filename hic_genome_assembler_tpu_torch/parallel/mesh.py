@@ -10,7 +10,9 @@ driving its local devices, in plain PyTorch:
   them as lists.  They take the place of the JAX ``*_sharding`` functions,
   which have no torch object to return;
 * every reduction or gather across devices is an explicit ``.to(device)``
-  followed by a sum or ``torch.cat`` in the caller's code.
+  followed by a sum or ``torch.cat`` in the caller's code;
+* a host array goes up to a card through pinned memory without waiting
+  (``utils/transfer``).
 
 There is no NCCL, ``DTensor`` or ``DeviceMesh`` here.  A device may appear
 more than once in a mesh: that is a *virtual* mesh, the counterpart of the
@@ -30,6 +32,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from hic_genome_assembler_tpu_torch.utils import transfer
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -114,7 +118,11 @@ def _as_tensor(x: ArrayLike) -> torch.Tensor:
 
 def _split_rows(t: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
     per = t.shape[0] // len(devices)
-    return [t[k * per : (k + 1) * per].to(dev, copy=True) for k, dev in enumerate(devices)]
+    blocks = []
+    for k, dev in enumerate(devices):
+        rows = t[k * per : (k + 1) * per]
+        blocks.append(transfer.copy_into(torch.empty_like(rows, device=dev), rows))
+    return blocks
 
 
 def put_rows_padded(mesh: Mesh, matrix: ArrayLike) -> Tuple[List[torch.Tensor], int]:
@@ -171,7 +179,7 @@ def place_blocks(
             for p, lo, hi in zip(pieces, offsets[:-1], offsets[1:]):
                 a, b = max(r0, lo), min(r1, hi)
                 if a < b and c0 < c1:
-                    blk[a - r0 : b - r0, : c1 - c0].copy_(p[a - lo : b - lo, c0:c1])
+                    transfer.copy_into(blk[a - r0 : b - r0, : c1 - c0], p[a - lo : b - lo, c0:c1])
             row_blocks.append(blk)
         blocks.append(row_blocks)
     return blocks

@@ -26,7 +26,8 @@ from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, matrix
 from hic_genome_assembler_tpu_torch.ops import perms  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import score_kernels as sk  # noqa: E402
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm  # noqa: E402
-from hic_genome_assembler_tpu_torch.utils import e2e, fixtures  # noqa: E402
+from hic_genome_assembler_tpu_torch.io import hicpro  # noqa: E402
+from hic_genome_assembler_tpu_torch.utils import e2e, fixtures, transfer  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 CPU = torch.device("cpu")
@@ -1002,3 +1003,135 @@ def test_pair_scores_batches_match_plain(cuda, B, shape, kind):
     assert torch.equal(got, again)
     exact = sk.pair_scores_plain(args[0].double(), args[1], args[2], args[3].double())
     _close_or_equal(got, sk.pair_scores_plain(*args), kind, W * (W - 1) // 2 + 1, exact)
+
+
+# ---------------------------------------------------------------------------
+# Part 2's copies: pinned uploads and readbacks (utils/transfer)
+# ---------------------------------------------------------------------------
+
+_SPIN = 50_000_000  # cycles of torch.cuda._sleep: about 25 ms of a held stream
+
+
+def test_uploads_survive_their_sources(cuda, monkeypatch):
+    """2,000 distinct small arrays queued behind a spin kernel, each source
+    dropped as soon as ``to_device`` returns, then a chunked upload and a
+    write into a strided view: every value arrives (the caching host
+    allocator reuses no staging block while its copy is in flight)."""
+    rng = np.random.default_rng(0)
+    torch.cuda._sleep(_SPIN)
+    outs, want = [], []
+    for i in range(2000):
+        a = rng.standard_normal(1 + i % 97) + i
+        dtype = (np.float32, np.float64, np.int64)[i % 3]
+        want.append(a.astype(dtype))
+        outs.append(transfer.to_device(a, cuda, dtype))
+        del a
+    monkeypatch.setattr(transfer, "CHUNK_BYTES", 4096)
+    big = rng.standard_normal((300, 257)).astype(np.float32)
+    want.append(big.copy())
+    outs.append(transfer.to_device(big, cuda))
+    del big
+    blk = torch.full((40, 64), -1.0, device=cuda)
+    part = rng.standard_normal((25, 30))
+    transfer.copy_into(blk[5:30, 2:32], part)          # cast on the host, strided target
+    torch.cuda.synchronize()
+    for got, w in zip(outs, want):
+        assert got.device.type == "cuda" and str(got.dtype).endswith(w.dtype.name)
+        np.testing.assert_array_equal(got.cpu().numpy(), w)
+    host = blk.cpu().numpy()
+    np.testing.assert_array_equal(host[5:30, 2:32], part.astype(np.float32))
+    assert (host[:5] == -1).all() and (host[30:] == -1).all() and (host[:, 32:] == -1).all()
+
+
+def test_readback_bit_equal_and_kept_alive(cuda):
+    """``start_readback`` / ``finish_readback`` give ``.cpu()``'s bits for
+    handles queued behind a spin kernel, the arrays of every earlier pass
+    stay intact while later passes draw on the allocator, and readbacks
+    given out of the order they started are all waited for."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kept = []
+    for p in range(60):
+        handles = (torch.randn(1 + p * 7, device=cuda, generator=gen),
+                   torch.randint(-2**40, 2**40, (9,), device=cuda, generator=gen),
+                   torch.randn((), device=cuda, dtype=torch.float64, generator=gen))
+        torch.cuda._sleep(_SPIN // 25)
+        pending = [transfer.start_readback(handles), transfer.start_readback(handles[:1])]
+        assert len(pending[0].events) == 1
+        got = transfer.finish_readback(pending[::-1] if p % 2 else pending)
+        if p % 2:
+            got = got[::-1]
+        want = [h.cpu().numpy() for h in handles]
+        for g, w in zip(got[0] + got[1], want + want[:1]):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert g.tobytes() == w.tobytes()
+        kept.append((got, want))
+    for got, want in kept:
+        for g, w in zip(got[0], want):
+            assert g.tobytes() == w.tobytes()
+    # the escalation's drain: rows into one pinned buffer
+    parts = [(0, 3, torch.randn(5, 4, device=cuda, generator=gen)),
+             (3, 2, torch.randn(2, 4, device=cuda, generator=gen))]
+    got = cost._drain_rows(parts, (5, 4))
+    want = np.concatenate([t[:n].cpu().numpy() for _o, n, t in parts]).astype(np.float64)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_part2_scheduler_makes_no_pageable_copy(cuda):
+    """Part 2's interleaved search over real scorers on the card, under
+    torch.profiler: pinned copies both ways and no pageable one; its
+    orders equal the CPU's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    genome = fixtures.make_genome(
+        chrom_scaffold_bins=((9, 7, 6, 5, 4, 3), (8, 6, 5, 4), (7, 6, 5, 4, 3, 2)), seed=11)
+    bins = [hicpro.Bin(bid, s.name, 0, 0, 1.0, 0.0) for s in genome.scaffolds for bid in s.bin_ids]
+    groups = [[[bid, name] for name in names for bid in genome.scaffold(name).bin_ids]
+              for _c, names in sorted(genome.true_groups().items())]
+
+    def run(device):
+        out = part2_order.order_genome(genome.matrix, groups, bins, genome.resolution, device,
+                                       n_scaffolds=4, scan_scaffolds=3, plot_chrom=False)
+        return [[(s.name, s.orientation) for s in g] for g in out]
+
+    want = run(CPU)
+    run(cuda)  # warm: kernels built, allocator primed
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run(cuda)
+        torch.cuda.synchronize()
+    assert got == want
+    copies = {e.key: e.count for e in prof.key_averages() if "Memcpy" in e.key}
+    assert not [k for k in copies if "Pageable" in k], copies
+    assert any("HtoD" in k and "Pinned" in k for k in copies), copies
+    assert any("DtoH" in k and "Pinned" in k for k in copies), copies
+
+
+def test_readback_from_two_cards():
+    """Handles on cuda:1 (the second card current or not) are read back on
+    cuda:1's stream with its own event; a scorer whose mesh starts on
+    cuda:1 uploads there and reads back the CPU's scores."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs and nvcc")
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    torch.cuda.set_device(cards[0])
+    a = torch.arange(10.0, device=cards[0])
+    with torch.cuda.device(cards[1]):
+        torch.cuda._sleep(_SPIN)
+    b = torch.arange(6, device=cards[1]) * 3
+    r = transfer.start_readback([a, b])
+    assert sorted(key[0] for key in r.events) == [0, 1]
+    r1 = transfer.start_readback([b + 1])
+    got = transfer.finish_readback([r1, r])
+    assert got[1][0].tolist() == list(range(10)) and got[1][1].tolist() == [3 * i for i in range(6)]
+    assert got[0][0].tolist() == [3 * i + 1 for i in range(6)]
+
+    rng = np.random.default_rng(8)
+    m = np.triu(rng.integers(0, 9, (40, 40)).astype(np.float64), 1)
+    sizes = [9, 8, 7, 6, 5, 5]
+    on_second = cost.ChromosomeScorer(m + m.T, sizes, cards[0],
+                                      mesh=pm.make_mesh((1, 1), [cards[1]])).full()
+    assert on_second.device == cards[1] and on_second._F_flat.device == cards[1]
+    cpu = cost.ChromosomeScorer(m + m.T, sizes, CPU).full()
+    orders = np.tile(np.arange(6, dtype=np.int32), (4, 1))
+    orients = rng.integers(0, 2, (4, 6)).astype(np.int32)
+    np.testing.assert_allclose(on_second.score_pairs(orders, orients),
+                               cpu.score_pairs(orders, orients), rtol=1e-5, atol=0)

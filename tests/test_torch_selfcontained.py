@@ -1,8 +1,9 @@
 """The port keeps its own copies of the JAX package's jax-free modules.
 
-First, no module of ``hic_genome_assembler_tpu_torch`` and not
-``chip_smoke.py`` imports ``hic_genome_assembler_tpu`` (checked on the
-syntax tree, one case per file).  Then each copied host module is held to
+First, no module of ``hic_genome_assembler_tpu_torch``, not
+``chip_smoke.py`` and no example twin (``examples/*_torch.py``) imports
+``hic_genome_assembler_tpu`` (checked on the syntax tree, one case per
+file).  Then each copied host module is held to
 its JAX original on the same seeded inputs with exact equality: the
 hypergeometric decisions, the permutation enumerations, the f64 oracle
 transforms, UPGMA, Louvain, FASTA, the file bus, config parsing, the
@@ -42,7 +43,8 @@ from hic_genome_assembler_tpu_torch.utils import fixtures, profiling
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "hic_genome_assembler_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py"] + sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "examples").glob("*_torch.py"))
 JAX_PACKAGE = "hic_genome_assembler_tpu"
 
 
@@ -117,8 +119,10 @@ def test_port_file_imports_nothing_of_the_jax_package(rel):
 
 def test_port_file_list_covers_the_copies():
     for rel in ("config.py", "io/native.py", "ops/oracle.py", "viz/plot.py",
-                "utils/fixtures.py", "models/part4_fasta.py"):
+                "utils/fixtures.py", "models/part4_fasta.py", "utils/transfer.py"):
         assert f"hic_genome_assembler_tpu_torch/{rel}" in PORT_FILES
+    for rel in ("working_example_torch.py", "run_fixture_pipeline_torch.py"):
+        assert f"examples/{rel}" in PORT_FILES
     hostio = REPO / "hic_genome_assembler_tpu_torch" / "csrc" / "hostio"
     sources = sorted(p.name for p in hostio.glob("*.cpp"))
     assert sources == sorted(os.path.basename(s) for s in native._SOURCES)
