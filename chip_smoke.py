@@ -140,18 +140,32 @@ passes or fails the run:
    copy of its committed config with the workdir in this run's temporary
    directory, through its truth check; it must launch the profile, combo
    (S = 4) and pair-score kernels and no plain scoring version on the
-   card.  Output in build/chip_smoke_working_example.log.
+   card.  Output in build/chip_smoke_working_example.log;
+12. graft entry: the port's graft entry, __graft_entry_torch__.py.
+   ``entry()`` on the card: its ``fn`` (``block_scores`` at 360 x 64, S = 6)
+   launches ``block_score`` once, two launches bit-identical, within
+   ``sum_bound`` of the plain version on CPU copies of its arguments and of
+   ``entry(device="cpu")`` with the same argmax, timed (CUDA events a call
+   and queued) beside the plain version, gather + addmm and the bound; then
+   ``dryrun_multichip(4)`` (a virtual (4, 1) mesh of cuda:0 on one card, a
+   real one on four): it must launch the counts kernel, ``pair_profiles``,
+   ``combo_score_topk``, ``topk_fold`` and ``pair_score`` and no plain
+   scoring version on the card; its wall is printed.  Output in
+   build/chip_smoke_graft.log.
 
-Each of phases 4, 5b (each forced escalation), 6, 7, 9 and 11 sets the launch
-counts of its kernels to 0 just before it drives its path and fails if a
-kernel of that path was not launched; phase 10's processes start from 0.
+Each of phases 4, 5b (each forced escalation), 6, 7, 9, 11 and 12 (entry,
+then the dry run) sets the launch counts of its kernels to 0 just before it
+drives its path, reads them as deltas after it, and fails if a kernel of
+that path was not launched; phase 10's processes start from 0.
 Phase 1 prints the card's nvidia-smi name and power limit, and phases 3,
 4b and 5b repeat them beside each time they print.  A device time from
 torch.profiler is printed only where the trace holds one event for each
 launch the wrapper counted (``device_ms``), else "not measured".  The
 second-to-last stdout line is the kernels' JSON record (each kernel's
 launches from its path: block_score's from the forced escalations,
-topk_fold's from phase 9's mesh, the others' from phase 4), the last line
+topk_fold's from phase 9's mesh, the others' from phase 4; block_score's
+``entry_launches`` and every record's ``dryrun_launches`` from phase 12),
+the last line
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -232,6 +246,17 @@ EXAMPLE_CONFIG = REPO / "configs" / "hicAssembler_config_fixtureExample_torch.tx
 EXAMPLE_WORKDIR = "/tmp/hic_working_example_torch"   # the committed config's
 EXAMPLE_S = 4                      # its nScaffolds: the combo launches' S
 BATCHES_LOG = REPO / "build" / "chip_smoke_rank_batches.json"  # phase 4's rank-count batches
+GRAFT_LOG = REPO / "build" / "chip_smoke_graft.log"   # phase 12's dry run
+GRAFT_N = 4                        # phase 12's dryrun_multichip positions
+# the kernels phase 12's dry run must launch (rank_counts is count_kernels')
+GRAFT_LAUNCHED = ("pair_profiles", "combo_score_topk", "topk_fold", "pair_score")
+# entry()'s scores: 15 pairs and c0 summed (the kernel against its plain
+# version on the same table); against entry(device="cpu"), whose table was
+# built on the CPU, also the table's own sums, a diagonal of at most 40 bins
+# (the largest scaffold) and the table product's 127 (cmax 64), and the two
+# products' roundings
+ENTRY_TERMS = 16
+ENTRY_CHAIN_TERMS = ENTRY_TERMS + 40 + 127 + 2
 REPLAY_REPS = 3                    # device-timed launches of each replayed batch
 # The previous kernels' times at the same shapes, printed beside this run's
 # and never put in its JSON record: phases 4b and 5b of this script run on
@@ -2404,6 +2429,101 @@ def phase_ep(workdir, main_dir, paths, resolution):
     return rank_launches
 
 
+def phase_graft_entry(torch, np):
+    """12: the port's graft entry, ``__graft_entry_torch__.py``.  ``entry()``
+    on the card: its ``fn`` launches ``block_score`` once, two launches are
+    bit-identical, the scores lie within ``sum_bound`` of
+    ``block_scores_plain`` on CPU copies of the arguments and of
+    ``entry(device="cpu")``'s (a table built on the CPU: ``ENTRY_CHAIN_TERMS``)
+    with the same argmax, timed beside the plain version, the JAX
+    formulation (gather + addmm) and the bound.  Then ``dryrun_multichip(GRAFT_N)``:
+    the counts kernel and the kernels of ``GRAFT_LAUNCHED`` launched, no plain
+    scoring version on the card.  The counts are set to 0 before each path
+    and read as deltas after it.  Returns entry's record and the dry run's
+    (counts-kernel launches, scoring launches, wall)."""
+    import __graft_entry_torch__ as graft
+    from hic_genome_assembler_tpu_torch.ops import count_kernels
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    fn, args = graft.entry()
+    torch.cuda.synchronize()
+    reset_launches()
+    before = sk.LAUNCHES["block_score"]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = sk.LAUNCHES["block_score"] - before
+    check(launches == 1, f"entry()'s fn launched block_score {launches} times, not once")
+    check(torch.equal(got, fn(*args)), "entry()'s fn: two launches differ")
+    F, sizes, orders, orients, c0 = args
+    (Bo, S), R = orders.shape, orients.shape[0]
+    check(S == 6 and Bo == 360 and R == 2 ** S, f"entry()'s shapes {Bo} x {R} at S = {S}")
+    cpu_args = [a.cpu() for a in args]
+    exact = sk.block_scores_plain(*[a.double() if a.is_floating_point() else a
+                                    for a in cpu_args]).numpy()
+    plain = sk.block_scores_plain(*cpu_args).numpy().astype(np.float64)
+    cpu_fn, cpu_entry_args = graft.entry(device="cpu")
+    on_cpu = cpu_fn(*cpu_entry_args).numpy().astype(np.float64)
+    scores = got.cpu().numpy().astype(np.float64)
+    check(bool(np.isfinite(scores).all()) and scores.shape == (360, 64),
+          "entry()'s scores are not 360 x 64 finite values")
+    err_plain = float(np.abs(scores - plain).max())
+    err_cpu = float(np.abs(scores - on_cpu).max())
+    check(bool((np.abs(scores - plain) <= sk.sum_bound(ENTRY_TERMS, np.abs(exact))).all()),
+          f"entry() beyond sum_bound of block_scores_plain (max abs err {err_plain:.3g})")
+    check(bool((np.abs(scores - on_cpu) <= sk.sum_bound(ENTRY_CHAIN_TERMS, np.abs(exact))).all()),
+          f"entry() beyond sum_bound of entry(device='cpu') (max abs err {err_cpu:.3g})")
+    check(int(np.argmax(scores)) == int(np.argmax(plain)) == int(np.argmax(on_cpu)),
+          "entry()'s argmax differs from the plain version's or the CPU entry's")
+    print(f"graft entry: entry() on the card launched block_score once; == plain (max abs err "
+          f"{err_plain:.3g}) and == entry(device='cpu') (max abs err {err_cpu:.3g}), argmax "
+          f"{int(np.argmax(scores))} on all three; two launches bit-identical")
+
+    # the bound: each input read once (of the table, the distinct values the
+    # orders gather: four orientation cells of each pair), the scores written
+    pi, pj = (torch.from_numpy(a).to(F.device) for a in np.triu_indices(S, k=1))
+    Cp1 = F.numel() // (4 * sizes.shape[0] ** 2)
+    idx = sk._block_indices(sizes, orders.long(), pi, pj, Cp1)
+    nbytes = (Bo * S + R * S) * 4 + sizes.numel() * 8 + 4 * int(torch.unique(idx).numel()) + 4 \
+        + Bo * R * 4
+    per_order, per_cand = sk.block_adds(S, R)
+    bound, bound_by = score_bound_ms(nbytes, Bo * per_order + Bo * R * per_cand)
+    E = sk._orient_selector(orients.long(), pi, pj, torch.float32)
+    rec = {
+        "launches": launches, "shape": f"S={S} {Bo}x{R}", "max_abs_err": err_plain,
+        "cpu_entry_max_abs_err": err_cpu,
+        "ms": cuda_ms(torch, lambda: fn(*args), 200),
+        "queued_ms": queued_ms(torch, lambda: fn(*args)),
+        "plain_ms": cuda_ms(torch, lambda: sk.block_scores_plain(*args), 20),
+        "library_ms": cuda_ms(torch, lambda: torch.addmm(c0, F[idx].reshape(Bo, -1), E), 50),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    in_queue = "not measured" if rec["queued_ms"] is None else f"{rec['queued_ms']:.4f} ms"
+    print(f"graft entry: block_score {rec['shape']} on {CARD}: {rec['ms']:.4f} ms a call, "
+          f"{in_queue} on the device with launches queued, plain {rec['plain_ms']:.4f} ms, "
+          f"gather + addmm {rec['library_ms']:.4f} ms, bound {bound:.6f} ms ({bound_by})")
+
+    with plain_scorers_on_cuda() as plain_calls:
+        reset_launches()
+        counts0, scoring0 = count_kernels.LAUNCHES, score_launches()
+        t0 = time.time()
+        with open(GRAFT_LOG, "w") as log, contextlib.redirect_stdout(log):
+            graft.dryrun_multichip(GRAFT_N)
+        wall = time.time() - t0
+        rank = count_kernels.LAUNCHES - counts0
+        scoring = {k: v - scoring0[k] for k, v in score_launches().items()}
+    line = [x for x in GRAFT_LOG.read_text().splitlines() if x.startswith("dryrun_multichip OK")]
+    check(len(line) == 1, f"dryrun_multichip({GRAFT_N}) printed no OK line; see {GRAFT_LOG}")
+    print(f"graft entry: {line[0]}")
+    print(f"graft entry: dryrun_multichip({GRAFT_N}) on {CARD}: {wall:.1f} s; rank-count "
+          f"launches {rank}, scoring kernel launches {json.dumps(scoring)}")
+    check(rank > 0, "the dry run launched the rank-count kernel no time")
+    check(all(scoring[name] > 0 for name in GRAFT_LAUNCHED),
+          f"the dry run left a scoring kernel unlaunched: {scoring}")
+    check(not any(plain_calls.values()),
+          f"a plain scoring version ran on the card in the dry run: {plain_calls}")
+    return rec, {"rank_counts": rank, "scoring": scoring, "wall_s": wall}
+
+
 def main():
     t0 = time.time()
     import torch
@@ -2441,6 +2561,9 @@ def main():
             torch, os.path.join(workdir, "mesh"), main_dir, paths, resolution)
         ep_launches = phase_ep(os.path.join(workdir, "ep"), main_dir, paths, resolution)
         phase_working_example(torch, os.path.join(workdir, "example"))
+        t12 = time.time()
+        entry_rec, graft_run = phase_graft_entry(torch, np)
+        print(f"graft entry: phase 12 took {time.time() - t12:.1f} s")
     for rec in hmm_records:
         rec["launches"] = hmm_launches[rec["name"]]
     for name, rec in score_records.items():
@@ -2454,7 +2577,11 @@ def main():
     score_records["combo_score_topk"]["mesh_group_argmax_launches"] = mesh_scoring["group_argmax"]
     score_records["block_score"].update(
         escalation_launches={f"n={n}": c for n, c in escalation_launches.items()},
-        escalation_split=escalation)
+        escalation_split=escalation, entry_launches=entry_rec["launches"], entry=entry_rec,
+        max_abs_err=max(score_records["block_score"]["max_abs_err"], entry_rec["max_abs_err"]))
+    for name, rec in score_records.items():
+        rec["dryrun_launches"] = graft_run["scoring"][name]
+    record["dryrun_launches"] = graft_run["rank_counts"]
     print(f"smoke: every phase passed in {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [record] + hmm_records
                       + [score_records[name] for name in SCORE_REPLACES]}))

@@ -1135,3 +1135,54 @@ def test_readback_from_two_cards():
     orients = rng.integers(0, 2, (4, 6)).astype(np.int32)
     np.testing.assert_allclose(on_second.score_pairs(orders, orients),
                                cpu.score_pairs(orders, orients), rtol=1e-5, atol=0)
+
+
+# -- the graft entry, __graft_entry_torch__.py -----------------------------------
+
+
+def test_graft_entry_matches_plain(cuda):
+    """``entry()``'s ``fn`` launches ``block_score`` once on the card and lies
+    within ``sum_bound`` (15 pairs and c0) of its plain version on CPU copies
+    of its arguments, with the same argmax."""
+    import __graft_entry_torch__ as graft
+
+    fn, args = graft.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    before = sk.LAUNCHES["block_score"]
+    got = fn(*args)
+    assert sk.LAUNCHES["block_score"] == before + 1
+    assert torch.equal(got, fn(*args))
+    cpu_args = [a.cpu() for a in args]
+    want = sk.block_scores_plain(*cpu_args).numpy()
+    exact = sk.block_scores_plain(*[a.double() if a.is_floating_point() else a
+                                    for a in cpu_args]).numpy()
+    got = got.cpu().numpy()
+    assert got.shape == (360, 64)
+    assert np.all(np.abs(got.astype(np.float64) - want) <= sk.sum_bound(16, np.abs(exact)))
+    assert int(np.argmax(got)) == int(np.argmax(want))
+
+
+def test_graft_dryrun_on_the_card(cuda, capsys):
+    """``dryrun_multichip(2)`` on the card (a real mesh with two cards, else a
+    virtual one): its checks pass, and the counts kernel and the scoring
+    kernels of its path launch."""
+    import __graft_entry_torch__ as graft
+
+    counts0, scoring0 = ck.LAUNCHES, dict(sk.LAUNCHES)
+    graft.dryrun_multichip(2)
+    assert ck.LAUNCHES > counts0
+    for name in ("pair_profiles", "combo_score_topk", "topk_fold", "pair_score"):
+        assert sk.LAUNCHES[name] > scoring0[name], name
+    assert "dryrun_multichip OK: 2 positions over" in capsys.readouterr().out
+
+
+def test_graft_dryrun_over_four_cards(capsys):
+    """``dryrun_multichip(4)`` over four real cards: EP on two cards a rank."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA GPUs and nvcc")
+    import __graft_entry_torch__ as graft
+
+    torch.cuda.set_device(0)
+    graft.dryrun_multichip(4)
+    out = capsys.readouterr().out
+    assert "dryrun_multichip OK: 4 positions over 4 cards (cuda:0, cuda:1, cuda:2, cuda:3)" in out

@@ -1,7 +1,8 @@
 """The port keeps its own copies of the JAX package's jax-free modules.
 
 First, no module of ``hic_genome_assembler_tpu_torch``, not
-``chip_smoke.py`` and no example twin (``examples/*_torch.py``) imports
+``chip_smoke.py``, not ``__graft_entry_torch__.py`` and no example twin
+(``examples/*_torch.py``) imports
 ``hic_genome_assembler_tpu`` (checked on the syntax tree, one case per
 file).  Then each copied host module is held to
 its JAX original on the same seeded inputs with exact equality: the
@@ -43,7 +44,7 @@ from hic_genome_assembler_tpu_torch.utils import fixtures, profiling
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "hic_genome_assembler_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"] + sorted(
+) + ["chip_smoke.py", "__graft_entry_torch__.py"] + sorted(
     str(p.relative_to(REPO)) for p in (REPO / "examples").glob("*_torch.py"))
 JAX_PACKAGE = "hic_genome_assembler_tpu"
 
@@ -123,6 +124,7 @@ def test_port_file_list_covers_the_copies():
         assert f"hic_genome_assembler_tpu_torch/{rel}" in PORT_FILES
     for rel in ("working_example_torch.py", "run_fixture_pipeline_torch.py"):
         assert f"examples/{rel}" in PORT_FILES
+    assert "__graft_entry_torch__.py" in PORT_FILES
     hostio = REPO / "hic_genome_assembler_tpu_torch" / "csrc" / "hostio"
     sources = sorted(p.name for p in hostio.glob("*.cpp"))
     assert sources == sorted(os.path.basename(s) for s in native._SOURCES)
