@@ -1,0 +1,290 @@
+"""The comparison fails what it must: the timed path broken underneath a
+whole run (a step that leaves its state unchanged, half of a batch left
+out, an answer altered where it is produced), a mutated output file, and
+the control (the reference in float32 in the assembler's place).  The
+frozen bound arithmetic and genome generator are held to the originals
+they were copied from."""
+
+import argparse
+import contextlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from conftest import ROOT, SMALL, cell
+
+PKG = "hic_genome_assembler_tpu_torch"
+
+
+def run_small(small_cell, capsys, workload, seed=5, genome=None):
+    import run
+
+    entry, config, mix, e2e, layer = small_cell(workload)
+    config["genome"].update(genome or {})
+    args = argparse.Namespace(workload=workload, seed=seed, seconds=0.1, trace=0)
+    sys.modules["matplotlib"] = None
+    assert run.measure(args, entry, config, mix, e2e, layer, "cpu") == 0
+    out, _ = capsys.readouterr()
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    original = getattr(obj, name)
+    setattr(obj, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(obj, name, original)
+
+
+def _greedy_unchanged(original):
+    def greedy(chrom, order_ids, orient_flags, remaining_ids):
+        return order_ids, orient_flags, 0.0
+        yield  # a generator, as the stage it replaces
+    return greedy
+
+
+def _half_pair_scores(original):
+    def score_pairs_async(self, orders, orients):
+        handles, finish = original(self, orders, orients)
+
+        def half(host):
+            costs = np.array(finish(host), dtype=np.float64)
+            costs[: len(costs) // 2] = -np.inf
+            return costs
+        return handles, half
+    return score_pairs_async
+
+
+def _swapped_orders(original):
+    def write(orderings, out_path):
+        if out_path.endswith("chromosomeOrdering.txt"):
+            first = list(orderings[0])
+            first[0], first[1] = first[1], first[0]
+            orderings = [first] + list(orderings[1:])
+        return original(orderings, out_path)
+    return write
+
+
+def _altered_fasta(original):
+    def run_pipeline(original_fasta_file, final_ordering_file, assembled_fasta_file):
+        original(original_fasta_file, final_ordering_file, assembled_fasta_file)
+        with open(assembled_fasta_file, "r+b") as fh:
+            fh.seek(-3, os.SEEK_END)
+            base = fh.read(1)
+            fh.seek(-3, os.SEEK_END)
+            fh.write(b"A" if base != b"A" else b"C")
+    return run_pipeline
+
+
+def _em_unchanged(original):
+    def em(self, X, X2, means0, covars0):
+        return original(self, X, X2, means0, covars0) if False else _no_em(self, means0, covars0)
+    return em
+
+
+def _no_em(hmm, means0, covars0):
+    hmm.means_, hmm.covars_ = np.asarray(means0), np.asarray(covars0)
+    hmm.transmat_ = np.asarray(hmm.transmat_init)
+
+
+def _shifted_cut(original):
+    def filter_noisy(counts, original_inds, psig=0.05, max_global_rounds=1000):
+        cuts = original(counts, original_inds, psig, max_global_rounds)
+        return [cuts[0] + 1] + list(cuts[1:]) if cuts else [counts.n // 2]
+    return filter_noisy
+
+
+FAULTS = {
+    # name: (cell, module, attribute, replacement, the number it fails)
+    "insertion_step_unchanged": ("hic16k_hypergeom.assemble", "models.part2_order",
+                                 "_greedy_coro", _greedy_unchanged, "orders_diff"),
+    "em_step_unchanged": ("hic3k_hmm.assemble", "ops.gaussian_hmm", "GaussianHMM2._em",
+                          _em_unchanged, "cuts_diff"),
+    "half_of_pair_batch": ("hic16k_hypergeom.assemble", "ops.cost",
+                           "SubsetScorer.score_pairs_async", _half_pair_scores, "orders_diff"),
+    "order_altered": ("hic3k_hmm.assemble", "io.filebus", "write_scaffold_orderings",
+                      _swapped_orders, "orders_diff"),
+    "fasta_altered": ("hic16k_hypergeom.assemble", "models.part4_fasta", "run_pipeline",
+                      _altered_fasta, "fasta_diff"),
+    "cut_altered": ("hic16k_hypergeom.assemble", "cluster.breakpoints", "filter_noisy_breakpoints",
+                    _shifted_cut, "cuts_diff"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_fault_under_a_whole_run_is_not_correct(small_cell, capsys, fault):
+    import importlib
+
+    workload, mod_name, attr, make, number = FAULTS[fault]
+    obj = importlib.import_module(f"{PKG}.{mod_name}")
+    *owner, name = attr.split(".")
+    for part in owner:
+        obj = getattr(obj, part)
+    # the EM's fits separate chromosomes from their k-means start only on
+    # longer chromosomes, and not on every map (seed 1 and 5 of these: no)
+    em = fault == "em_step_unchanged"
+    genome = {"chromosomes": 7, "stretch": 1.0} if em else None
+    with patched(obj, name, make):
+        result = run_small(small_cell, capsys, workload, seed=2 if em else 5, genome=genome)
+    assert result["correct"] is False
+    check = result["checks"][number]
+    assert check["value"] > check["limit"], result["checks"]
+
+
+def test_mutated_output_files_are_not_correct(small_cell, tmp_path):
+    import compare
+    import genome
+    import window
+
+    _, config, mix, _, _ = small_cell("hic16k_hypergeom.assemble")
+    paths = genome.write_hicpro(genome.make(config["genome"], 9), str(tmp_path / "hicpro"))
+    job = tmp_path / "job"
+    job.mkdir()
+    sys.modules["matplotlib"] = None
+    window.run_job(str(job), paths, config, mix["parts"], "cpu")
+    reference = compare.Reference(paths, config)
+    ok, numbers = compare.judge_jobs(reference, [str(job)])
+    assert ok, numbers
+    cases = {"dendrogramOrder.txt": "dendrogram_diff", "binGroupings.txt": "bin_groups_diff",
+             "chromosomeGroupings.txt": "groups_diff",
+             "finalChromosomeOrdering.txt": "final_diff", "log.txt": "cost_rel_err"}
+    for name, number in cases.items():
+        bad = tmp_path / f"bad_{name}"
+        shutil.copytree(job, bad)
+        target = bad / ("log.txt" if name == "log.txt" else os.path.join("files", name))
+        text = target.read_text()
+        if name == "log.txt":
+            key = "Best cost at the end of the final step = "
+            head, _, tail = text.partition(key)
+            value, _, rest = tail.partition("\n")
+            text = head + key + repr(float(value) * (1 + 1e-7)) + "\n" + rest
+        else:
+            lines = text.split("\n")
+            i = next(k for k in range(1, len(lines)) if lines[k] and lines[k - 1]
+                     and not lines[k].startswith("#") and not lines[k - 1].startswith("#"))
+            lines[i], lines[i - 1] = lines[i - 1], lines[i]
+            text = "\n".join(lines)
+        target.write_text(text)
+        ok, numbers = compare.judge_jobs(reference, [str(bad)])
+        assert not ok and numbers[number] > compare.LIMITS[number], (name, numbers)
+
+
+@pytest.mark.parametrize("workload", sorted(SMALL))
+def test_control_in_float32_is_not_correct(small_cell, tmp_path, workload):
+    import control
+
+    _, config, *_ = small_cell(workload)
+    result = control.control(config, 17, str(tmp_path))
+    assert result["correct"] is False
+    check = result["checks"]["cost_rel_err"]
+    assert check["value"] > check["limit"]
+
+
+def test_frozen_bounds_equal_the_smoke_tests():
+    import bounds
+
+    rng = np.random.default_rng(0)
+    batches = [[[0, 0, 1], [5, 0, 1], [400, 0, 1]],
+               [[10, 900, 0], [10, 1500, 0], [700, 1600, 0], [3, 1000, 1]],
+               rng.integers(0, 17000, (45, 3)).tolist()]
+    for b in batches[2]:
+        b[2] = b[2] % 2
+    code = ("import json, sys, numpy as np\nsys.modules['matplotlib'] = None\nimport chip_smoke\n"
+            "from hic_genome_assembler_tpu_torch.ops import count_kernels as ck\n"
+            f"batches = {json.dumps(batches)}\n"
+            "out = [chip_smoke.rank_bound(np, ck, b, 17184, 17184, 2)[:2] for b in batches]\n"
+            "out += [chip_smoke.rank_bound(np, ck, b, 4096, 8192, 4, 4096, 0)[:2] for b in batches]\n"
+            "out += [chip_smoke.hmm_bound_ms(k, T) for k in ('hmm_forward_backward', 'hmm_viterbi')"
+            " for T in (1, 3715, 17162)]\n"
+            "print(json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = [list(bounds.rank_bound(b, 17184, 17184, 2)) for b in batches]
+    got += [list(bounds.rank_bound(b, 4096, 8192, 4, 4096, 0)) for b in batches]
+    got += [list(bounds.hmm_bound_ms(k, T)) for k in ("hmm_forward_backward", "hmm_viterbi")
+            for T in (1, 3715, 17162)]
+    assert got == want
+
+
+def test_frozen_genome_is_the_fixture_generators(tmp_path):
+    """The configurations' layouts are the fixture generator's; at the
+    draft seed a run's contact map, bed, biases and sizes are the fixture
+    genome's byte for byte, and any other seed keeps the draft (bed and
+    sizes) and draws another map."""
+    import genome
+    from hic_genome_assembler_tpu_torch.utils import e2e, fixtures
+
+    _, c16, *_ = cell("hic16k_hypergeom.assemble")
+    _, chmm, *_ = cell("hic3k_hmm.assemble")
+    assert genome.layout(c16["genome"]) == e2e.e2e_layout()
+    assert genome.layout(chmm["genome"]) == tuple(
+        tuple(s.n_bins for s in sorted((s for s in e2e.make_hmm_genome(8192).scaffolds
+                                        if s.chrom == c), key=lambda s: s.order_in_chrom))
+        for c in range(12))
+    for config in (c16, chmm):
+        recipe = dict(config["genome"], chromosomes=3)
+        theirs = fixtures.write_hicpro_files(
+            fixtures.make_genome(chrom_scaffold_bins=genome.layout(recipe),
+                                 seed=recipe["draft_seed"], noise=recipe["noise"],
+                                 cross_noise_frac=recipe["cross_noise"]),
+            str(tmp_path / f"b{recipe['draft_seed']}"))
+        for seed in (recipe["draft_seed"], 2 ** 31 + 5):
+            ours = genome.write_hicpro(genome.make(recipe, seed), str(tmp_path / f"a{seed}"))
+            for kind in ("bed", "bias", "matrix", "sizes"):
+                with open(ours[kind], "rb") as x, open(theirs[kind], "rb") as y:
+                    same = x.read() == y.read()
+                assert same == (seed == recipe["draft_seed"] or kind in ("bed", "sizes")), \
+                    (seed, kind)
+
+
+@pytest.mark.parametrize("n,seed", [(12, 0), (40, 1), (90, 2), (150, 3)])
+def test_reference_louvain_is_the_programs_method(n, seed):
+    """The reference's Louvain, written apart from the program's, finds the
+    program's partitions and modularity on dense graphs of planted
+    communities and on their log-similarity form."""
+    import reference as ref
+
+    from hic_genome_assembler_tpu_torch.cluster import louvain
+
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 4, n)
+    adj = np.where(blocks[:, None] == blocks[None, :], 5.0, 0.5) * rng.random((n, n))
+    adj = np.log10((adj + adj.T) + 1.0)
+    for s in range(3):
+        theirs = louvain.best_partition(adj, seed=s)
+        assert ref.louvain_partition(adj, s).tolist() == [theirs[i] for i in range(n)]
+    part, score = louvain.modularity_rounds(adj, louvain_rounds=4, seed=0)
+    order, cuts = ref.louvain_tail(adj, [], 4)
+    labels = np.asarray([part[i] for i in range(n)])
+    assert ref.modularity(labels, adj) == score
+    sizes = np.bincount(labels)
+    assert [len(g) for g in np.split(labels[order], cuts)] == sorted(sizes, reverse=True)
+
+
+def _tail_node_moved(original):
+    def rounds(adj, louvain_rounds=1, seed=0):
+        part, score = original(adj, louvain_rounds, seed)
+        part = dict(part)
+        part[0] = (part[0] + 1) % (max(part.values()) + 1)
+        return part, score
+    return rounds
+
+
+def test_louvain_tail_fault_is_not_correct(small_cell, capsys):
+    """A Louvain tail that puts one bin into another community fails the
+    comparison (the small HMM genome's tail holds several communities)."""
+    from hic_genome_assembler_tpu_torch.cluster import louvain
+
+    with patched(louvain, "modularity_rounds", _tail_node_moved):
+        result = run_small(small_cell, capsys, "hic3k_hmm.assemble")
+    assert result["correct"] is False
+    assert result["checks"]["bin_groups_diff"]["value"] > 0, result["checks"]
