@@ -1,5 +1,6 @@
 """CLI entry point: ``python -m hic_genome_assembler_tpu_torch -part1 -part2
--part3 -part4 -config <file> [-device cuda|cpu] [-mesh auto|off|RxC]``.
+-part3 -part4 -config <file> [-device cuda|cpu] [-mesh auto|off|RxC]
+[-trace DIR]``.
 
 The same flags and run semantics as ``hic_genome_assembler_tpu.cli``: any
 combination of parts runs in order, total wall-clock printed at the end.
@@ -8,12 +9,15 @@ Parts 1 and 2 run on the chosen torch device, or on the mesh that
 port's copies of the JAX package's part 3 and part 4 modules.  Under ``torchrun`` (or with
 ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set) each
 process searches its shard of part 2's chromosomes and process 0 merges
-them.
+them.  ``-trace DIR`` runs the parts under ``torch.profiler`` and writes
+one Chrome trace a process, ``DIR/trace_<pid>.json``: the program's stage
+spans (``utils/profiling``'s timers) beside the card's kernels and copies.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 from dataclasses import dataclass, field
@@ -75,13 +79,23 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         type=str,
     )
+    parser.add_argument(
+        "-trace",
+        help=(
+            "Directory for a torch.profiler Chrome trace of the run "
+            "(trace_<pid>.json): the program's stage spans and the card's "
+            "kernels and copies. Off by default."
+        ),
+        default=None,
+        type=str,
+    )
     return parser
 
 
 def main(argv=None) -> RunReport:
     args = build_parser().parse_args(argv)
     start = time.time()
-    from hic_genome_assembler_tpu_torch.utils import hostmem
+    from hic_genome_assembler_tpu_torch.utils import hostmem, profiling
     from hic_genome_assembler_tpu_torch.parallel import distributed, runtime
 
     hostmem.tune()  # warm-page reuse for the multi-GB host matrices
@@ -89,7 +103,8 @@ def main(argv=None) -> RunReport:
     parts = [p for p in ("part1", "part2", "part3", "part4") if getattr(args, p)]
     try:
         rt = runtime.bring_up(args.mesh, args.device)
-        report = run_parts(var, parts, rt)
+        with profiling.device_trace(args.trace) if args.trace else contextlib.nullcontext():
+            report = run_parts(var, parts, rt)
     finally:
         distributed.shutdown()
     print("Total run-time = " + str(time.time() - start) + " seconds")

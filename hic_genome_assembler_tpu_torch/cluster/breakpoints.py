@@ -26,6 +26,7 @@ import torch
 
 from hic_genome_assembler_tpu_torch.ops import count_kernels, hypergeom
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
+from hic_genome_assembler_tpu_torch.utils import profiling
 
 
 def hyper_geom_sf(x, M, n, N) -> np.ndarray:
@@ -71,6 +72,13 @@ def _host_fixed_counts(rank_mat: np.ndarray, start: int, cut: int) -> np.ndarray
     width = max(cut - start, 0)
     window = rank_mat[:, :width]
     return ((window >= start) & (window <= cut)).sum(axis=1).astype(np.int32)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array: a pageable readback from a card, counted in
+    ``part1/pageable_copies``."""
+    profiling.count_copy("part1/pageable_copies", t.device)
+    return t.cpu().numpy()
 
 
 def _pow2_params(rows: List[Tuple[int, int, int]]) -> np.ndarray:
@@ -127,7 +135,7 @@ class RankCounts:
         if mesh is None and self.n < _HOST_N:
             self.where = "host"
             self._host = np.concatenate(
-                [np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p, dtype=np.int32)
+                [np.asarray(_to_host(p) if isinstance(p, torch.Tensor) else p, dtype=np.int32)
                  for p in pieces]
             )
             return
@@ -158,7 +166,7 @@ class RankCounts:
         if not self._in_pending(key):
             return False
         for keys, out in self._pending:
-            rows = out[:, : self.n].cpu().numpy()
+            rows = _to_host(out[:, : self.n])
             for k2, row in zip(keys, rows):
                 if k2 is not None and k2 not in self._cache:
                     self._cache[k2] = np.ascontiguousarray(row, dtype=np.int32)
@@ -208,7 +216,7 @@ class RankCounts:
         for ofs in range(0, len(missing), chunk):
             blk = missing[ofs : ofs + chunk]
             params = _pow2_params([(s, c, 0) for s, c in blk])
-            rows = self._dispatch_many(params)[: len(blk), : self.n].cpu().numpy()
+            rows = _to_host(self._dispatch_many(params)[: len(blk), : self.n])
             for k2, row in zip(blk, rows):
                 self._cache[k2] = np.ascontiguousarray(row, dtype=np.int32)
 
@@ -223,7 +231,7 @@ class RankCounts:
         if self._host is not None:
             out = host_fn(self._host, *key)
         else:
-            out = self._dispatch_many(np.array([params]))[0, : self.n].cpu().numpy()
+            out = _to_host(self._dispatch_many(np.array([params]))[0, : self.n])
         self._cache[key] = out
         return out
 

@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from hic_genome_assembler_tpu_torch.ops.gaussian_hmm import GaussianHMM2
+from hic_genome_assembler_tpu_torch.utils import profiling
 
 
 def identify_boundary(
@@ -73,7 +74,8 @@ def hmm_chromosomes(
             cut_ind = look_ahead
         else:
             hidden = GaussianHMM2(seed=seed, mode=hmm_mode, device=device).fit_predict(X)
-            cut_ind = identify_boundary(hidden, cut_indices, switch_count=min_size)
+            with profiling.timer("part1/hmm_boundary"):
+                cut_ind = identify_boundary(hidden, cut_indices, switch_count=min_size)
         if cut_ind != prev_cut:
             prev_cut = cut_ind
             round_count += 1

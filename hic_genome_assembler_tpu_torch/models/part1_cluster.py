@@ -237,6 +237,9 @@ def run_pipeline(
     print("### Working on Part1 of the pipeline ###")
     total_start = time.time()
     profiling.reset()
+    # read as 0 where the branch skips them (``hicbench/metrics``)
+    profiling.declare("part1/log_transform", "part1/hmm_boundary")
+    profiling.count("part1/pageable_copies", 0)
 
     # --- ingest + cluster ---------------------------------------------------
     start = time.time()
@@ -292,10 +295,12 @@ def run_pipeline(
             cut_indices = breakpoints.filter_noisy_breakpoints(counts, initial, psig=psig)
             rank_where = counts.where
             del counts  # frees the device copy of the rank matrix
-            adj = oracle.log_transform(adj, log_base=10, plus_one=True)
+            with profiling.timer("part1/log_transform"):
+                adj = oracle.log_transform(adj, log_base=10, plus_one=True)
         elif hmm:
             adj = oracle.to_similarity(adj, row_sums)
-            adj = oracle.log_transform(adj, log_base=10, plus_one=True)
+            with profiling.timer("part1/log_transform"):
+                adj = oracle.log_transform(adj, log_base=10, plus_one=True)
             cut_indices = hmm_cuts.identify_chromosome_groups_hmm(
                 adj,
                 bin_list,

@@ -20,6 +20,8 @@ import math
 import time
 from typing import Dict, List, Sequence, Tuple, Union
 
+from hic_genome_assembler_tpu_torch.utils import profiling
+
 Triplet = List["RestrictionScaffold"]
 
 
@@ -346,22 +348,25 @@ def run_pipeline(
     print("########################################")
     print("### Working on Part3 of the pipeline ###")
     start = time.time()
-    scaff_groups, scaff_dict = initiate_scaffold_objects(
-        chromosome_order_file, scaff_size_file, restriction_site_file, resolution
-    )
-    trips = [pull_triplets(group) for group in scaff_groups]
-    valid_pairs = produce_read_pair_keys(trips)
-    valid_pairs = read_valid_pair_file(valid_pair_file, valid_pairs)
-    final_groups = give_final_chrom_ordering(
-        trips, scaff_groups, scaff_dict, valid_pairs,
-        resolution=resolution, length_cutoff=length_cutoff,
-    )
-    from hic_genome_assembler_tpu_torch.io import filebus
+    with profiling.timer("part3/orient"):
+        scaff_groups, scaff_dict = initiate_scaffold_objects(
+            chromosome_order_file, scaff_size_file, restriction_site_file, resolution
+        )
+        trips = [pull_triplets(group) for group in scaff_groups]
+        valid_pairs = produce_read_pair_keys(trips)
+    with profiling.timer("part3/read_pairs"):
+        valid_pairs = read_valid_pair_file(valid_pair_file, valid_pairs)
+    with profiling.timer("part3/orient"):
+        final_groups = give_final_chrom_ordering(
+            trips, scaff_groups, scaff_dict, valid_pairs,
+            resolution=resolution, length_cutoff=length_cutoff,
+        )
+        from hic_genome_assembler_tpu_torch.io import filebus
 
-    filebus.write_scaffold_orderings(
-        [[(name, orientation) for name, orientation in group] for group in final_groups],
-        final_ordering_file,
-    )
+        filebus.write_scaffold_orderings(
+            [[(name, orientation) for name, orientation in group] for group in final_groups],
+            final_ordering_file,
+        )
     print("Total run-time  for Part3 = " + str(time.time() - start))
     print(
         "- Part 3 (optional orientation of scaffolds smaller than resulution "

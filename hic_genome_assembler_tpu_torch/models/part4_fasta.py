@@ -17,6 +17,7 @@ from hic_genome_assembler_tpu_torch.io.fasta import (
     write_wrapped_seq,
 )
 from hic_genome_assembler_tpu_torch.io.filebus import read_chromosome_ordering
+from hic_genome_assembler_tpu_torch.utils import profiling
 
 
 def write_new_fasta(
@@ -85,8 +86,10 @@ def run_pipeline(
     print("########################################")
     print("### Working on Part4 of the pipeline ###")
     start = time.time()
-    fasta = read_fasta(original_fasta_file)
-    groups = read_chromosome_ordering(final_ordering_file)
-    write_new_fasta(groups, fasta, assembled_fasta_file, chars_per_line=50, n_gap_length=100)
+    with profiling.timer("part4/read_draft"):
+        fasta = read_fasta(original_fasta_file)
+        groups = read_chromosome_ordering(final_ordering_file)
+    with profiling.timer("part4/write"):
+        write_new_fasta(groups, fasta, assembled_fasta_file, chars_per_line=50, n_gap_length=100)
     print("Total run-time  for Part4 = " + str(time.time() - start))
     print("- Part 4 (writing of new super-scaffolded genome .fasta) completed successfully")

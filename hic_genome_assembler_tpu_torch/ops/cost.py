@@ -47,7 +47,7 @@ from hic_genome_assembler_tpu_torch.ops.score_kernels import (  # noqa: F401
     group_argmax as _group_argmax,  # the JAX module's name (ops/cost.py:251); no caller here
 )
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm
-from hic_genome_assembler_tpu_torch.utils import transfer
+from hic_genome_assembler_tpu_torch.utils import profiling, transfer
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -602,8 +602,10 @@ class SubsetScorer:
         hit = self._host_memo.get(key)
         if hit is not None:
             return hit
-        gathered = self.parent._sub[np.ix_(bin_order, bin_order)]
-        out = oracle.cost_function(gathered, self.total)
+        # every float64 re-score of part 2, from any stage
+        with profiling.timer("part2/f64_rescore"):
+            gathered = self.parent._sub[np.ix_(bin_order, bin_order)]
+            out = oracle.cost_function(gathered, self.total)
         self._host_memo[key] = out
         return out
 

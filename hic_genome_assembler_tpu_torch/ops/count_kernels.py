@@ -37,6 +37,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hic_genome_assembler_tpu_torch.utils import profiling
+
 # Padded layout of the rank matrix: rows to a multiple of 512, columns to a
 # multiple of 2048, pad entries -1.  The same layout as the JAX package's
 # RankCounts, so its state maps one to one.
@@ -91,6 +93,8 @@ def counts_many_plain(
     rows = row0 + torch.arange(n_r, dtype=torch.int64, device=dev)[:, None]
     out = torch.empty((len(p), n_r), dtype=torch.int32, device=dev)
     for k, (start, cut, flag) in enumerate(p):
+        if flag != 1:
+            profiling.count_copy("part1/pageable_copies", dev)
         hi = rows if flag == 1 else torch.tensor(cut, dtype=torch.int64, device=dev)
         # no column at or past the largest prefix end can count
         width = min(n_c, max((row0 + n_r - 1 if flag == 1 else cut) - start - col0, 0))

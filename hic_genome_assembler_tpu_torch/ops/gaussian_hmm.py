@@ -13,8 +13,12 @@ log-densities and the M step are matrix products (``torch.matmul``); the
 forward-backward and Viterbi recursions go through ``ops.hmm_kernels`` (the
 CUDA kernels on a GPU, their plain torch loops on the CPU).  The EM loop
 runs on the host and reads the log-likelihood back once per iteration.
-Fits and EM iterations are counted in ``profiling``, and the k-means, EM
-and decode seconds timed there (part 1's summary prints them).
+Fits and EM iterations are counted in ``profiling``, and the k-means,
+upload, EM and decode seconds timed there (part 1's summary prints them).
+Each copy between the host and a card is counted there too
+(``part1/pageable_copies``): the uploads of the data and the parameters,
+the log-likelihood read once an iteration, the fitted parameters and the
+path.
 
 ``mode`` keeps the JAX package's two semantic differences and nothing
 else: k-means takes 2 inits in ``"fast"`` mode and 10 in ``"exact"`` mode,
@@ -35,6 +39,7 @@ from hic_genome_assembler_tpu_torch.ops import hmm_kernels, kmeans
 from hic_genome_assembler_tpu_torch.utils import profiling
 
 _MIN_COVAR = kmeans.MIN_COVAR
+_COPIES = "part1/pageable_copies"
 _LOG2PI = float(np.log(2.0 * np.pi))
 
 
@@ -87,7 +92,12 @@ class GaussianHMM2:
         return kmeans.kmeans2(X, self.seed, n_init), kmeans.diag_covars(X)
 
     def _tensor(self, a) -> torch.Tensor:
+        profiling.count_copy(_COPIES, self.device)
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(self.device)
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        profiling.count_copy(_COPIES, t.device)
+        return t.cpu().numpy()
 
     def _log_start(self) -> torch.Tensor:
         return torch.log(self._tensor(self.startprob))
@@ -104,25 +114,27 @@ class GaussianHMM2:
             lp, gamma, xi = hmm_kernels.forward_backward(log_b, log_start, torch.log(trans))
             means, covars, trans = _m_step(X, X2, gamma, xi)
             profiling.count("part1/hmm_em_iterations")
+            profiling.count_copy(_COPIES, lp.device)
             lp = float(lp)
             if lp - prev_lp < self.tol:
                 break
             prev_lp = lp
         profiling.count("part1/hmm_fits")
-        self.means_ = means.cpu().numpy()
-        self.covars_ = covars.cpu().numpy()
-        self.transmat_ = trans.cpu().numpy()
+        self.means_ = self._host(means)
+        self.covars_ = self._host(covars)
+        self.transmat_ = self._host(trans)
 
     def _decode(self, X: torch.Tensor, X2: torch.Tensor) -> np.ndarray:
         with profiling.timer("part1/hmm_decode"):
             log_b = _log_gaussian_diag(X, X2, self._tensor(self.means_), self._tensor(self.covars_))
             log_trans = torch.log(self._tensor(self.transmat_))
             path = hmm_kernels.viterbi(log_b, self._log_start(), log_trans)
-            return path.cpu().numpy().astype(np.int64)
+            return self._host(path).astype(np.int64)
 
     def _upload(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        Xd = self._tensor(X)
-        return Xd, Xd * Xd
+        with profiling.timer("part1/hmm_upload"):
+            Xd = self._tensor(X)
+            return Xd, Xd * Xd
 
     def _fit(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """EM on ``X``; returns its upload (``X``, ``X ** 2`` on device)."""

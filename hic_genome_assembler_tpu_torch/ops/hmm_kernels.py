@@ -24,6 +24,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from hic_genome_assembler_tpu_torch.utils import profiling
+
+_COPIES = "part1/pageable_copies"  # the plain Viterbi's readbacks on a card
+
 # Kernel launches made by the wrappers below (read by chip_smoke.py to show
 # that the main path went through the kernels).
 LAUNCHES = {"hmm_forward_backward": 0, "hmm_viterbi": 0}
@@ -112,12 +116,15 @@ def viterbi_plain(
         scores = delta[:, None] + log_trans
         backptrs[t - 1] = torch.argmax(scores, dim=0)  # the lowest index wins a tie
         delta = torch.amax(scores, dim=0) + log_b[t]
+    profiling.count_copy(_COPIES, log_b.device)
     back = backptrs.tolist()
+    profiling.count_copy(_COPIES, log_b.device)
     state = int(torch.argmax(delta))
     path = [state] * T
     for t in range(T - 2, -1, -1):
         state = back[t][state]
         path[t] = state
+    profiling.count_copy(_COPIES, log_b.device)
     return torch.tensor(path, dtype=torch.int32, device=log_b.device)
 
 

@@ -41,6 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from hic_genome_assembler_tpu_torch.utils import profiling
+
 # Kernel launches made by the wrappers below (read by chip_smoke.py to show
 # that the main path went through the kernels).
 LAUNCHES = {
@@ -51,6 +53,7 @@ LAUNCHES = {
 # Candidates one block of the top-k kernels reduces (a group larger than
 # this is split into tiles whose partial results a second pass merges).
 TOPK_TILE = 4096
+_COPIES = "part2/pageable_copies"
 _SMEM_MAX = 227 * 1024     # shared memory a block may use on Hopper
 # the profile kernel: (s, t) pairs of one wrapped diagonal a block, as many as
 # PROFILE_SMEM bytes of diagonal sums hold (8 * L bytes a pair), 1 to
@@ -153,9 +156,16 @@ def _launch(name: str, dev: torch.device, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A plain version's index table on ``device``: a pageable copy from a
+    card's host, counted in ``part2/pageable_copies``."""
+    profiling.count_copy(_COPIES, device)
+    return torch.from_numpy(a).to(device)
+
+
 def _triu(S: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     pi, pj = np.triu_indices(S, k=1)
-    return torch.from_numpy(pi).to(device), torch.from_numpy(pj).to(device)
+    return _upload(pi, device), _upload(pj, device)
 
 
 def _orient_selector(orients: torch.Tensor, pi, pj, dtype) -> torch.Tensor:
@@ -229,7 +239,7 @@ def _skew_profile_chunk(
         dim=2,
     )                                                      # [k, S, 4, L]
     pos = torch.where((pos >= 0) & (pos < L), pos, L)
-    which = torch.tensor([1, 0, 0, 1], device=dev)[None, None, :, None]
+    which = _upload(np.array([1, 0, 0, 1]), dev)[None, None, :, None]
     flat_prof = prof.reshape(k, S, 1, 2 * (L + 1)).expand(k, S, 4, 2 * (L + 1))
     h4 = torch.gather(flat_prof, 3, which * (L + 1) + pos)
     s_ids = chunk_start + torch.arange(k, device=dev)
@@ -288,21 +298,22 @@ def pair_profiles_plain(
         chunk_elems = SKEW_CHUNK_ELEMS
     dev = sub.device
     Sp, L, C = sizes.shape[0], 2 * cmax - 1, sub.shape[0]
+    profiling.count_copy(_COPIES, sizes.device)
     sizes_h = sizes.cpu().numpy()
     offsets = np.concatenate([[0], np.cumsum(sizes_h)[:-1]])
     k = chunk_elems // max(cmax * Sp * cmax, 1)
     if k < 1:
-        sid = torch.from_numpy(np.repeat(np.arange(Sp), sizes_h)).to(dev)
-        loc = torch.from_numpy(
-            np.concatenate([np.arange(c) for c in sizes_h] + [np.zeros(0, np.int64)])
-        ).to(dev)
+        sid = _upload(np.repeat(np.arange(Sp), sizes_h), dev)
+        loc = _upload(
+            np.concatenate([np.arange(c) for c in sizes_h] + [np.zeros(0, np.int64)]), dev
+        )
         return _build_pair_profiles(sub, sid, loc, sizes, Sp, L, cmax)
     k = min(k, Sp)
     m_pad = tnf.pad(sub, (0, 1, 0, 1))                     # zero guard row/col at C
     blk_idx = np.full((Sp, cmax), C, dtype=np.int64)
     for s, (o, c) in enumerate(zip(offsets, sizes_h)):
         blk_idx[s, :c] = np.arange(o, o + c)
-    blk_d = torch.from_numpy(blk_idx).to(dev)
+    blk_d = _upload(blk_idx, dev)
     starts = list(range(0, Sp - Sp % k, k))
     chunks = [_skew_profile_chunk(m_pad, blk_d, sizes, s0, Sp, k) for s0 in starts]
     if Sp % k:

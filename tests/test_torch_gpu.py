@@ -8,6 +8,7 @@ package and runs without the repository's conftest (which imports jax):
 """
 
 import filecmp
+import json
 import os
 import sys
 
@@ -27,7 +28,7 @@ from hic_genome_assembler_tpu_torch.ops import perms  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import score_kernels as sk  # noqa: E402
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hic_genome_assembler_tpu_torch.io import hicpro  # noqa: E402
-from hic_genome_assembler_tpu_torch.utils import e2e, fixtures, transfer  # noqa: E402
+from hic_genome_assembler_tpu_torch.utils import e2e, fixtures, profiling, transfer  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 CPU = torch.device("cpu")
@@ -387,6 +388,36 @@ def test_gaussian_hmm_on_cuda_equals_cpu(cuda, mode):
     np.testing.assert_array_equal(gpu.fit_predict(X), cpu.fit_predict(X))
     for attr in ("means_", "covars_", "transmat_"):
         np.testing.assert_allclose(getattr(gpu, attr), getattr(cpu, attr), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["fast", "exact"])
+def test_gaussian_hmm_counts_each_of_its_copies(cuda, mode, tmp_path):
+    """One ``fit_predict`` on the card raises ``part1/pageable_copies`` by
+    the copies its code issues: the fit uploads the data, the k-means means
+    and covariances, the start and transition matrices, reads the
+    log-likelihood once an EM iteration and the three fitted parameters;
+    the decode uploads those three and the start, and reads the path
+    (exact mode uploads the data once more).  Each is one copy in the
+    profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    X = np.concatenate([rng.normal(0.0, 1.0, (140, 12)), rng.normal(1.5, 1.0, (90, 12))])
+    hmm = gaussian_hmm.GaussianHMM2(seed=0, mode=mode, device=cuda)
+    hmm.fit_predict(X)  # builds the kernels, starts cuBLAS
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hmm.fit_predict(X)
+        torch.cuda.synchronize()
+    counters = profiling.counters()
+    profiling.reset()
+    iterations = counters["part1/hmm_em_iterations"]
+    assert counters["part1/pageable_copies"] == 13 + iterations + (mode == "exact")
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as fh:
+        copies = [e["name"] for e in json.load(fh)["traceEvents"] if e.get("cat") == "gpu_memcpy"]
+    assert len(copies) == counters["part1/pageable_copies"], copies
 
 
 @pytest.mark.parametrize("n", [97, 2500])
