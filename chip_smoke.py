@@ -66,6 +66,14 @@ passes or fails the run:
    twice the log-likelihood's bound), no NaN, identical paths; their times
    a call (CUDA events) and on the device (torch.profiler) are printed
    beside their bounds and the plain loops' times;
+5c. k-means: the HMM fits' k-means on the card (``ops/kmeans.py``,
+   ``csrc/kmeans.cu``) against the numpy fit at the HMM cell's largest and
+   smallest fits (3,715 x 743, 209 x 41) and about the 16K path's widest
+   (17,162 x 8,600): the centres within 1e-10 relative, the labels equal,
+   the covariances (from the fit's column statistics) within 1e-12 relative of ``diag_covars``; then timed, a whole fit of two inits a call (CUDA events), the kernels'
+   device time a fit (torch.profiler, only where its events equal the
+   launches), the launches and Lloyd iterations a fit, beside one read of
+   the matrix at HBM's rate and the numpy fit's seconds;
 5b. scoring kernels: pair profiles, combo top-k (and its group epilogue),
    block scores and pair scores against their plain torch versions on the
    card at the main path's shapes and bench.py's combo shape (5.16M
@@ -206,6 +214,8 @@ HMM_T = (1, 2, 31, 511, 512, 513, 1023, 1024, 1025, 3715, 17162, 100003)
 HMM_EXTRA = ((3715, "neg_inf"), (17162, "neg_inf"), (1025, "ties"), (17162, "ties"),
              (3715, "int"), (100003, "int"))
 HMM_TIMED_T = (3715, 17162)
+# the HMM cell's first and last fits, and about the 16K HMM path's widest
+KMEANS_SHAPES = ((3715, 743), (209, 41), (17162, 8600))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP64_OPS_PER_S = 34e12             # H100 SXM data sheet, f64 outside the tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 int32 lanes x ~1.98 GHz
@@ -1254,6 +1264,64 @@ def phase_hmm_kernels(torch, np):
             "at_T_17162": {"ms": ms2, "device_ms": dev2, "queued_ms": queued2, "plain_ms": plain2,
                            "bound_ms": bound2, "bound_by": bound_by2},
         })
+    return records
+
+
+def phase_kmeans(torch, np):
+    """The card's k-means against the numpy fit at ``KMEANS_SHAPES``, then
+    timed beside one read of the matrix and the numpy fit; returns the
+    records by shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hic_genome_assembler_tpu_torch.ops import hmm_kernels as hk
+    from hic_genome_assembler_tpu_torch.ops import kmeans
+    from hic_genome_assembler_tpu_torch.utils import profiling
+
+    def launched():
+        return sum(v for k, v in hk.LAUNCHES.items() if k.startswith("kmeans_"))
+
+    records = {}
+    for n, d in KMEANS_SHAPES:
+        rng = np.random.default_rng(n + d)
+        half = n // 2
+        X = np.concatenate([rng.normal(0.0, 1.0, (half, d)), rng.normal(0.5, 1.2, (n - half, d))])
+        Xd = torch.from_numpy(X).to("cuda")
+        t0 = time.perf_counter()
+        want = kmeans._kmeans2_host(X, 0, 2)
+        host_s = time.perf_counter() - t0
+        profiling.reset()
+        before = launched()
+        got = [t.cpu().numpy() for t in kmeans._kmeans2_card(Xd, 0, 2)]
+        launches, iterations = launched() - before, profiling.counters()[kmeans.ITERATIONS]
+        covars_ok = np.allclose(got[2], kmeans.diag_covars(X), rtol=1e-12, atol=0)
+        main = [t.cpu().numpy() for t in kmeans.kmeans2(Xd, 0, 2)]
+        profiling.reset()
+        check(np.allclose(got[0], want[0], rtol=1e-10, atol=1e-13)
+              and np.array_equal(got[1], want[1]),
+              f"k-means {n} x {d}: the card's centres or labels differ from the numpy fit's")
+        check(covars_ok, f"k-means {n} x {d}: the card's covariances differ from diag_covars'")
+        check(np.array_equal(main[0], got[0]) and np.array_equal(main[1], got[2]),
+              f"k-means {n} x {d}: kmeans2 of the CUDA tensor differs from the card's fit")
+        fit = lambda: kmeans._kmeans2_card(Xd, 0, 2)  # noqa: E731
+        iters = 20 if n * d < 10**7 else 3
+        ms = cuda_ms(torch, fit, iters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fit()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if "kmeans_" in e.key]
+        dev = (sum(e.self_device_time_total for e in events) / 1e3 / iters
+               if sum(e.count for e in events) == launches * iters else None)
+        bound = 1e3 * n * d * 8 / HBM_BYTES_PER_S
+        profiling.reset()
+        records[f"{n}x{d}"] = {"ms": ms, "device_ms": dev, "bound_ms": bound, "launches": launches,
+                               "lloyd_iterations": iterations, "numpy_s": host_s}
+        on_device = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"k-means {n} x {d}: {ms:.4f} ms a fit of 2 inits (CUDA events), on the device "
+              f"{on_device} (profiler), {launches} launches, {iterations} Lloyd iterations; "
+              f"one read of X {bound:.6f} ms (bytes); numpy {host_s:.4f} s; centres, labels "
+              "and covariances equal to numpy's")
+    print("[kmeans] " + json.dumps(records))
     return records
 
 
@@ -2545,6 +2613,7 @@ def main():
         record["replay"] = phase_replay(torch, np, batches)
         record["max_abs_err"] = max(record["max_abs_err"], record["replay"]["max_abs_err"])
         hmm_records = phase_hmm_kernels(torch, np)
+        phase_kmeans(torch, np)
         score_records = phase_score_kernels(torch, np)
         for name, replay in phase_score_replay(torch, np, score_inputs).items():
             score_records[name]["replay"] = replay

@@ -240,6 +240,7 @@ def run_pipeline(
     # read as 0 where the branch skips them (``hicbench/metrics``)
     profiling.declare("part1/log_transform", "part1/hmm_boundary")
     profiling.count("part1/pageable_copies", 0)
+    profiling.count("part1/kmeans_lloyd_iterations", 0)
 
     # --- ingest + cluster ---------------------------------------------------
     start = time.time()

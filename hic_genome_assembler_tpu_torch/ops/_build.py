@@ -127,6 +127,28 @@ SIGNATURES = {
                     _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
     # F, C + 1, sizes, Sp, cand [B, 2*W], B, W, c0, out [B]
     "pair_score": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR, _PTR],
+    # X [n, d], n, d, mean [d], var0 [d], covars [2, d] or null
+    "kmeans_col_stats": [_PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR],
+    # X, mean, n, d, rows a block, Xc [n, d], x_sq [n]
+    "kmeans_center": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR],
+    # Xc, x_sq, n, d, rows, first, closest [n]
+    "kmeans_seed_closest": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR],
+    # Xc, x_sq, closest, n, d, rows, cand0, cand1, part [blocks, 2]
+    "kmeans_seed_pots": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR],
+    # Xc, x_sq, part, blocks, d, first, cand0, cand1, centers [2, d], cn [2]
+    "kmeans_seed_pick": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR],
+    # Xc, n, d, rows, centers, cn, labels_in or null, labels_out, relabel, best or null,
+    # part_sums [blocks, 2, d], part_inertia [blocks], part_counts [blocks, 6]
+    "kmeans_step": [_PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR,
+                    _PTR],
+    # part_sums, part_counts, blocks, n, d, centers, var0, centers_new, cn_new,
+    # tile_part [tiles, 5], ticket [1] (0), status [5]
+    "kmeans_fold": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                    _PTR],
+    # part_inertia, part_counts, blocks, n, d, first_init, centers, mean, labels,
+    # best_centers, best_labels, best_inertia
+    "kmeans_choose": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                      _PTR],
 }
 
 

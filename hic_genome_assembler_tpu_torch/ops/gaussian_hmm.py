@@ -8,17 +8,20 @@ never re-estimated, the transmat re-estimated from
 ``[[.9, .1], [1e-4, .9999]]``, EM to a log-likelihood gain below ``tol``,
 Viterbi decoding.
 
-Everything is float64, on the host and on ``device`` alike.  The per-frame
+Everything is float64, on the host and on ``device`` alike.  A fit uploads
+its data first; the k-means and the starting covariances work on that
+upload (``ops.kmeans``: the CUDA kernels on a GPU, numpy on the CPU) and
+stay on its device as the EM's starting parameters.  The per-frame
 log-densities and the M step are matrix products (``torch.matmul``); the
 forward-backward and Viterbi recursions go through ``ops.hmm_kernels`` (the
 CUDA kernels on a GPU, their plain torch loops on the CPU).  The EM loop
 runs on the host and reads the log-likelihood back once per iteration.
 Fits and EM iterations are counted in ``profiling``, and the k-means,
 upload, EM and decode seconds timed there (part 1's summary prints them).
-Each copy between the host and a card is counted there too
-(``part1/pageable_copies``): the uploads of the data and the parameters,
-the log-likelihood read once an iteration, the fitted parameters and the
-path.
+Each pageable copy between the host and a card is counted there too
+(``part1/pageable_copies``): the uploads of the data and of the start and
+transition matrices, the log-likelihood read once an iteration, the fitted
+parameters and the path (k-means reads back through pinned memory).
 
 ``mode`` keeps the JAX package's two semantic differences and nothing
 else: k-means takes 2 inits in ``"fast"`` mode and 10 in ``"exact"`` mode,
@@ -87,9 +90,12 @@ class GaussianHMM2:
         self.covars_: np.ndarray = None
         self.transmat_: np.ndarray = None
 
-    def _init_params(self, X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def _init_params(self, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The k-means means and the data's covariances of the upload ``X``,
+        on its device."""
         n_init = 10 if self.mode == "exact" else 2
-        return kmeans.kmeans2(X, self.seed, n_init), kmeans.diag_covars(X)
+        means, covars = kmeans.kmeans2(X, self.seed, n_init)
+        return torch.as_tensor(means, device=X.device), torch.as_tensor(covars, device=X.device)
 
     def _tensor(self, a) -> torch.Tensor:
         profiling.count_copy(_COPIES, self.device)
@@ -102,8 +108,8 @@ class GaussianHMM2:
     def _log_start(self) -> torch.Tensor:
         return torch.log(self._tensor(self.startprob))
 
-    def _em(self, X: torch.Tensor, X2: torch.Tensor, means0, covars0) -> None:
-        means, covars = self._tensor(means0), self._tensor(covars0)
+    def _em(self, X: torch.Tensor, X2: torch.Tensor, means: torch.Tensor,
+            covars: torch.Tensor) -> None:
         trans = self._tensor(self.transmat_init)
         log_start = self._log_start()
         prev_lp = -np.inf
@@ -138,9 +144,9 @@ class GaussianHMM2:
 
     def _fit(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """EM on ``X``; returns its upload (``X``, ``X ** 2`` on device)."""
-        with profiling.timer("part1/hmm_kmeans"):
-            means0, covars0 = self._init_params(X)
         data = self._upload(X)
+        with profiling.timer("part1/hmm_kmeans"):
+            means0, covars0 = self._init_params(data[0])
         # ends in a readback of the fitted parameters: device time included
         with profiling.timer("part1/hmm_em"):
             self._em(*data, means0, covars0)

@@ -28,9 +28,12 @@ from hic_genome_assembler_tpu_torch.utils import profiling
 
 _COPIES = "part1/pageable_copies"  # the plain Viterbi's readbacks on a card
 
-# Kernel launches made by the wrappers below (read by chip_smoke.py to show
-# that the main path went through the kernels).
-LAUNCHES = {"hmm_forward_backward": 0, "hmm_viterbi": 0}
+# Kernel launches made by the wrappers below and by the k-means on the card
+# (``ops/kmeans.py``, ``csrc/kmeans.cu``), read by chip_smoke.py to show that
+# the main path went through the kernels.
+LAUNCHES = {"hmm_forward_backward": 0, "hmm_viterbi": 0, "kmeans_col_stats": 0,
+            "kmeans_center": 0, "kmeans_seed_closest": 0, "kmeans_seed_pots": 0,
+            "kmeans_seed_pick": 0, "kmeans_step": 0, "kmeans_fold": 0, "kmeans_choose": 0}
 
 # How far the kernels may differ from the plain loops, whose sums they
 # associate differently.  A chain of T rounded f64 steps is off by at most

@@ -23,12 +23,13 @@ from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp  # noqa: E4
 from hic_genome_assembler_tpu_torch.models import part2_order  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import cost  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import count_kernels as ck  # noqa: E402
-from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, matrix  # noqa: E402
+from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, kmeans, matrix  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import perms  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import score_kernels as sk  # noqa: E402
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hic_genome_assembler_tpu_torch.io import hicpro  # noqa: E402
 from hic_genome_assembler_tpu_torch.utils import e2e, fixtures, profiling, transfer  # noqa: E402
+from hmm_signals import SIGNALS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 CPU = torch.device("cpu")
@@ -393,12 +394,15 @@ def test_gaussian_hmm_on_cuda_equals_cpu(cuda, mode):
 @pytest.mark.parametrize("mode", ["fast", "exact"])
 def test_gaussian_hmm_counts_each_of_its_copies(cuda, mode, tmp_path):
     """One ``fit_predict`` on the card raises ``part1/pageable_copies`` by
-    the copies its code issues: the fit uploads the data, the k-means means
-    and covariances, the start and transition matrices, reads the
-    log-likelihood once an EM iteration and the three fitted parameters;
-    the decode uploads those three and the start, and reads the path
-    (exact mode uploads the data once more).  Each is one copy in the
-    profiler's trace."""
+    the copies its code issues: the fit uploads the data, the start and
+    transition matrices, reads the log-likelihood once an EM iteration and
+    the three fitted parameters; the decode uploads those three and the
+    start, and reads the path (exact mode uploads the data once more).  The
+    k-means means and covariances stay on the card, and the k-means reads
+    back through pinned memory, uncounted: once an init (the seeding's
+    distances) and once a Lloyd iteration.  Each is one copy in the
+    profiler's trace (torch stages a scalar's read in pinned memory, so the
+    trace's own names do not tell the two kinds apart)."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(5)
@@ -413,11 +417,150 @@ def test_gaussian_hmm_counts_each_of_its_copies(cuda, mode, tmp_path):
     counters = profiling.counters()
     profiling.reset()
     iterations = counters["part1/hmm_em_iterations"]
-    assert counters["part1/pageable_copies"] == 13 + iterations + (mode == "exact")
+    assert counters["part1/pageable_copies"] == 11 + iterations + (mode == "exact")
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     with open(tmp_path / "trace.json") as fh:
         copies = [e["name"] for e in json.load(fh)["traceEvents"] if e.get("cat") == "gpu_memcpy"]
-    assert len(copies) == counters["part1/pageable_copies"], copies
+    kmeans_reads = counters["part1/kmeans_lloyd_iterations"] + (10 if mode == "exact" else 2)
+    assert len(copies) == counters["part1/pageable_copies"] + kmeans_reads, copies
+
+
+KMEANS_KERNELS = [name for name in hmm_kernels.LAUNCHES if name.startswith("kmeans_")]
+
+
+def _card_kmeans(X, cuda, seed=0, n_init=2):
+    """The card's k-means of ``X`` (centres, labels and covariances, on the
+    host) beside the host's centres and labels, with the Lloyd iterations
+    each counted; every k-means kernel launched at least once."""
+    Xd = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float64)).to(cuda)
+    profiling.reset()
+    want = kmeans._kmeans2_host(X, seed, n_init)
+    host_iterations = profiling.counters()[kmeans.ITERATIONS]
+    profiling.reset()
+    before = dict(hmm_kernels.LAUNCHES)
+    got = kmeans._kmeans2_card(Xd, seed, n_init)
+    torch.cuda.synchronize()
+    card_iterations = profiling.counters()[kmeans.ITERATIONS]
+    profiling.reset()
+    assert all(hmm_kernels.LAUNCHES[k] > before[k] for k in KMEANS_KERNELS), hmm_kernels.LAUNCHES
+    assert card_iterations == host_iterations
+    return [t.cpu().numpy() for t in got], want
+
+
+@pytest.mark.parametrize("n_init", [2, 10])
+@pytest.mark.parametrize("name", sorted(SIGNALS))
+def test_card_kmeans_equals_host(cuda, name, n_init):
+    """The card's fit against the numpy fit: the centres within the sum
+    order's rounding, the chosen init's labels equal; ``kmeans2`` of a CUDA
+    tensor returns the card's centres and covariances on the card."""
+    (centers, labels, covars), (want_centers, want_labels) = _card_kmeans(SIGNALS[name], cuda,
+                                                                          n_init=n_init)
+    np.testing.assert_allclose(centers, want_centers, rtol=1e-10, atol=1e-13)
+    np.testing.assert_array_equal(labels, want_labels)
+    X = torch.from_numpy(SIGNALS[name]).to(cuda)
+    got, got_covars = kmeans.kmeans2(X, 0, n_init)
+    assert got.device == X.device and np.array_equal(got.cpu().numpy(), centers)
+    assert got_covars.device == X.device and np.array_equal(got_covars.cpu().numpy(), covars)
+
+
+@pytest.mark.parametrize("name", sorted(SIGNALS))
+def test_card_diag_covars_equals_host(cuda, name):
+    """The covariances of a card's fit, from its one column-statistics
+    launch, against ``diag_covars``; ``diag_covars`` itself refuses a CUDA
+    tensor."""
+    X = SIGNALS[name]
+    Xd = torch.from_numpy(X).to(cuda)
+    before = hmm_kernels.LAUNCHES["kmeans_col_stats"]
+    _, got = kmeans.kmeans2(Xd, 0, 2)
+    assert got.device.type == "cuda" and hmm_kernels.LAUNCHES["kmeans_col_stats"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), kmeans.diag_covars(X), rtol=1e-12, atol=0)
+    with pytest.raises(ValueError, match="runs on the host"):
+        kmeans.diag_covars(Xd)
+
+
+def _blobs(n, d, seed):
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    return np.concatenate([rng.normal(0.0, 1.0, (half, d)), rng.normal(0.7, 1.3, (n - half, d))])
+
+
+# n = 2; d across the warps' stride (32), the step's column stride (256), the
+# folds' (1024), the HMM cell's shapes and the 16K path's widest fit
+_KMEANS_SHAPES = [(2, 5), (2, 1), (300, 1), (300, 32), (300, 33), (300, 41), (300, 256),
+                  (300, 257), (300, 1025), (209, 41), (3715, 743), (400, 8600)]
+
+
+@pytest.mark.parametrize("n,d", _KMEANS_SHAPES)
+def test_card_kmeans_shapes(cuda, n, d):
+    X = _blobs(n, d, n + d)
+    (centers, labels, covars), (want_centers, want_labels) = _card_kmeans(X, cuda, seed=n * d)
+    np.testing.assert_allclose(centers, want_centers, rtol=1e-10, atol=1e-13)
+    np.testing.assert_array_equal(labels, want_labels)
+    np.testing.assert_allclose(covars, kmeans.diag_covars(X), rtol=1e-12, atol=0)
+
+
+def test_card_kmeans_rows_past_the_block_cap(cuda):
+    """More rows than two blocks an SM hold at ``_MAX_ROWS`` each: more
+    blocks than that."""
+    n = kmeans._MAX_ROWS * 2 * kmeans._sm_count(torch.cuda.current_device()) + 1
+    X = _blobs(n, 1, 3)
+    (centers, labels, _), (want_centers, want_labels) = _card_kmeans(X, cuda)
+    np.testing.assert_allclose(centers, want_centers, rtol=1e-10, atol=1e-13)
+    np.testing.assert_array_equal(labels, want_labels)
+
+
+def test_card_kmeans_of_equal_rows(cuda):
+    """Every row equal: the seeding's potential is 0, both centres are one
+    row, every row ties (label 0), cluster 1 is empty with nothing to
+    relocate and takes cluster 0's centre; tol and the shift are 0."""
+    X = np.full((50, 3), 3.5)
+    (centers, labels, _), (want_centers, want_labels) = _card_kmeans(X, cuda)
+    np.testing.assert_array_equal(centers, want_centers)
+    np.testing.assert_array_equal(labels, want_labels)
+    assert not labels.any()
+
+
+def _card_lloyd(X, centers, cuda):
+    """``CardFit.lloyd`` from ``centers`` (in the centred frame), then the
+    choice of a first init: labels, centres plus the mean and inertia."""
+    fit = kmeans.CardFit(torch.from_numpy(X).to(cuda))
+    fit.prepare()
+    fit.C[0].copy_(torch.from_numpy(centers))
+    fit.cn[0].copy_(torch.from_numpy((centers * centers).sum(axis=1)))
+    fit.choose(*fit.lloyd(), first_init=True)
+    return (fit.best_labels.cpu().numpy(), fit.best_centers.cpu().numpy(),
+            float(fit.best_inertia.cpu()))
+
+
+@pytest.mark.parametrize("case", ["ties", "relocation"])
+def test_card_lloyd_ties_and_empty_cluster(cuda, case):
+    """From chosen centres: rows at the same distance from both (exact
+    integers, a mean of 0) take label 0, as ``np.argmin``; a centre that
+    no row is nearest to takes the row farthest from the other centre
+    (``_update_centers``' relocation, on the card in plain torch)."""
+    if case == "ties":
+        X = np.array([[0.0, k] for k in range(-3, 4)] + [[-2.0, 0.0], [2.0, 0.0]])
+        centers = np.array([[-1.0, 0.0], [1.0, 0.0]])
+    else:
+        X = _blobs(120, 6, 11)
+        centers = np.stack([X[0] - X.mean(axis=0), np.full(6, 1000.0)])
+    Xc = X - X.mean(axis=0)
+    tol = float(np.mean(np.var(X, axis=0)) * kmeans._TOL)
+    want_labels, want_inertia, want_centers = kmeans._lloyd(Xc, centers, tol)
+    labels, got_centers, inertia = _card_lloyd(X, centers, cuda)
+    np.testing.assert_array_equal(labels, want_labels)
+    np.testing.assert_allclose(got_centers, want_centers + X.mean(axis=0), rtol=1e-10, atol=1e-13)
+    np.testing.assert_allclose(inertia, want_inertia, rtol=1e-12)
+    if case == "ties":
+        assert not labels[:7].any()  # the column x = 0: every row ties at the first step
+
+
+def test_card_kmeans_repeats_its_bits(cuda):
+    X = torch.from_numpy(SIGNALS["log_similarity_300x40"]).to(cuda)
+    first = kmeans._kmeans2_card(X, 3, 10)
+    first = [t.clone() for t in first]
+    again = kmeans._kmeans2_card(X, 3, 10)
+    assert len(first) == 3 and all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("n", [97, 2500])

@@ -17,58 +17,10 @@ from sklearn.cluster import KMeans
 
 from hic_genome_assembler_tpu.cluster import hmm_cuts as jax_cuts
 from hic_genome_assembler_tpu.ops import gaussian_hmm as jax_hmm
-from hic_genome_assembler_tpu.ops import oracle
 from hic_genome_assembler_tpu_torch.cluster import hmm_cuts
 from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, kmeans
-from hic_genome_assembler_tpu_torch.utils import e2e, state
-
-
-def two_segment_obs(seed=0, t1=40, t2=40, d=6, sep=4.0):
-    """``tests/test_hmm.py``'s two-regime signal."""
-    rng = np.random.default_rng(seed)
-    return np.vstack([rng.normal(0.0, 1.0, (t1, d)), rng.normal(sep, 1.0, (t2, d))])
-
-
-def regime_data(seed, T=220, sep=4.0):
-    """``tests/test_hmm_louvain_oracle.py::_regime_data``: a 1-D sequence of
-    random-length regimes."""
-    rng = np.random.default_rng(seed)
-    states = np.zeros(T, dtype=int)
-    pos = 0
-    while pos < T:
-        ln = int(rng.integers(15, 45))
-        states[pos : pos + ln] = rng.integers(0, 2)
-        pos += ln
-    return (rng.normal(0.0, 1.0, T) + states * sep)[:, None]
-
-
-def hmm_adjacency(n=640):
-    """The HMM branch's input matrix (distance, similarity, log10(+1)) of
-    ``e2e.make_hmm_genome(n)`` in planted order."""
-    m = e2e.make_hmm_genome(n).matrix.astype(np.float64)
-    adj = oracle.to_similarity(oracle.to_distance(m), m.sum(axis=1))
-    return oracle.log_transform(adj, log_base=10, plus_one=True)
-
-
-def _signals():
-    rng5, rng6 = np.random.default_rng(5), np.random.default_rng(6)
-    out = {
-        "two_segment_0": two_segment_obs(0),
-        "two_segment_1": two_segment_obs(1),
-        "fast_exact": np.concatenate(
-            [rng5.normal(0.0, 0.3, (40, 6)), rng5.normal(4.0, 0.3, (35, 6))]
-        ),
-        "cache": np.concatenate(
-            [rng6.normal(0.0, 0.2, (30, 4)), rng6.normal(3.0, 0.2, (30, 4))]
-        ),
-    }
-    for seed in range(5):
-        out[f"regime_{seed}"] = regime_data(seed)
-    out["log_similarity_300x40"] = hmm_adjacency()[:300, 6:46]
-    return out
-
-
-SIGNALS = _signals()
+from hic_genome_assembler_tpu_torch.utils import profiling, state
+from hmm_signals import SIGNALS, hmm_adjacency, regime_data
 
 
 @pytest.mark.parametrize("n_init", [2, 10])
@@ -76,9 +28,74 @@ SIGNALS = _signals()
 def test_kmeans2_equals_sklearn(name, n_init):
     X = SIGNALS[name]
     want = KMeans(n_clusters=2, random_state=0, n_init=n_init).fit(X).cluster_centers_
-    got = kmeans.kmeans2(X, 0, n_init)
+    got = kmeans.kmeans2(X, 0, n_init)[0]
     # same rows in the same order; only summation order differs
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-13)
+
+
+@pytest.mark.parametrize("n_init", [2, 10])
+@pytest.mark.parametrize("name", ["two_segment_0", "regime_3", "log_similarity_300x40"])
+def test_plusplus_draws_are_the_draws_of_every_init(monkeypatch, name, n_init):
+    """The card's fit draws every init's k-means++ draws first: the same
+    first row and the same ``uniform`` values, in order, as the host's
+    fit draws between its inits."""
+    X = SIGNALS[name]
+    schedule = kmeans.plusplus_draws(7, X.shape[0], n_init)
+    made = []
+
+    class Recording(np.random.RandomState):
+        def choice(self, *args, **kwargs):
+            made.append(("choice", super().choice(*args, **kwargs)))
+            return made[-1][1]
+
+        def uniform(self, *args, **kwargs):
+            made.append(("uniform", super().uniform(*args, **kwargs)))
+            return made[-1][1]
+
+    monkeypatch.setattr(np.random, "RandomState", Recording)
+    kmeans.kmeans2(X, 7, n_init)
+    assert [kind for kind, _ in made] == ["choice", "uniform"] * n_init
+    for (first, rand), (_, got_first), (_, got_rand) in zip(schedule, made[::2], made[1::2]):
+        assert first == got_first
+        np.testing.assert_array_equal(rand, got_rand)
+
+
+def test_kmeans_of_a_host_tensor_is_the_numpy_kmeans():
+    """A CPU tensor runs the numpy code: the same bits as the array, as
+    arrays, and the same Lloyd iterations counted."""
+    X = SIGNALS["log_similarity_300x40"]
+    profiling.reset()
+    want, want_covars = kmeans.kmeans2(X, 0, 2)
+    iterations = profiling.counters()[kmeans.ITERATIONS]
+    profiling.reset()
+    got, got_covars = kmeans.kmeans2(torch.from_numpy(X.copy()), 0, 2)
+    assert profiling.counters()[kmeans.ITERATIONS] == iterations >= 2
+    profiling.reset()
+    assert isinstance(got, np.ndarray) and np.array_equal(got, want)
+    assert isinstance(got_covars, np.ndarray) and np.array_equal(got_covars, want_covars)
+    np.testing.assert_array_equal(want_covars, kmeans.diag_covars(X))
+    covars = kmeans.diag_covars(torch.from_numpy(X))
+    assert isinstance(covars, np.ndarray) and np.array_equal(covars, want_covars)
+
+
+def test_kmeans_refuses_a_device_it_does_not_run_on():
+    X = torch.empty((10, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="cuda or on the host"):
+        kmeans.kmeans2(X, 0, 2)
+    with pytest.raises(ValueError, match="runs on the host"):
+        kmeans.diag_covars(X)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n", [2, 16, 17, 209, 3715, 17162, 2048 * 264, 2048 * 264 + 1])
+def test_block_rows_cover_every_row(n, sms):
+    """The row kernels' blocks: at most ``_MAX_ROWS`` rows, no block empty,
+    and no more blocks than two an SM or than a row a warp needs, unless the
+    row cap needs them."""
+    rows = kmeans.block_rows(n, sms)
+    blocks = -(-n // rows)
+    assert 1 <= rows <= kmeans._MAX_ROWS and (blocks - 1) * rows < n <= blocks * rows
+    assert blocks <= max(min(2 * sms, -(-n // kmeans._WARPS)), -(-n // kmeans._MAX_ROWS))
 
 
 def test_diag_covars_equals_numpy_cov():

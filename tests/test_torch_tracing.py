@@ -192,6 +192,13 @@ def test_part1_spans_lie_in_the_cut_search(cpu_run):
     assert inside <= timers["part1/cut_detection_hmm"]["total_s"]
 
 
+def test_kmeans_counts_its_lloyd_iterations(cpu_run):
+    """Every fit's k-means runs two inits of at least one Lloyd iteration
+    each (fast mode)."""
+    counters = cpu_run["part1"][1]
+    assert counters["part1/kmeans_lloyd_iterations"] >= 2 * counters["part1/hmm_fits"] > 0
+
+
 def test_copy_counters_read_zero_on_the_cpu(cpu_run):
     assert cpu_run["part1"][1]["part1/pageable_copies"] == 0
     assert cpu_run["part2"][1]["part2/pageable_copies"] == 0
