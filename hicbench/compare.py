@@ -2,11 +2,11 @@
 against the plain reference (``reference.py``), each number beside its
 limit.
 
-The reference is computed once a run, after the window: every job of a run
-assembles the same genome, so each distinct set of job outputs is judged
-once and every job's files are read.  Part 1 and part 2 are held to the
-reference's own; part 3 to the job's part 2, part 4 to the job's part 3.  Imports NumPy, SciPy and the
-reference only.
+The reference is computed once for each of a run's inputs, after the
+window: the jobs of an input assemble the same genome, so each distinct set
+of their outputs is judged once and every job's files are read.  Part 1 and
+part 2 are held to the reference's own; part 3 to the job's part 2, part 4
+to the job's part 3.  Imports NumPy, SciPy and the reference only.
 """
 
 from __future__ import annotations
@@ -193,6 +193,28 @@ def judge_jobs(reference: Reference, job_dirs: Sequence[str]) -> Tuple[bool, Dic
         for k, v in seen[key].items():
             worst[k] = max(worst.get(k, v), v)
     ok = bool(job_dirs) and all(v <= LIMITS[k] for k, v in worst.items())
+    return ok, worst
+
+
+def judge_runs(inputs: Sequence[Dict[str, str]], job_dirs: Sequence[str], config: Dict,
+               note=lambda message: None) -> Tuple[bool, Dict[str, float]]:
+    """``judge_jobs`` over a window whose job k assembled
+    ``inputs[k % len(inputs)]``: each input's jobs by its own float64
+    reference, built once and freed before the next; the worst reading of
+    each number over them all."""
+    ok, worst = bool(job_dirs), {}
+    for i, paths in enumerate(inputs):
+        dirs = job_dirs[i :: len(inputs)]
+        if not dirs:
+            continue
+        reference = Reference(paths, config, np.float64, note)
+        ok_i, numbers = judge_jobs(reference, dirs)
+        del reference
+        if "missing_file" in numbers:
+            return False, numbers
+        ok = ok and ok_i
+        for k, v in numbers.items():
+            worst[k] = max(worst.get(k, v), v)
     return ok, worst
 
 

@@ -5,7 +5,8 @@ to come out not correct.
 
     python3 hicbench/control.py --workload <config>.<mix> --seeds 1 2 3
 
-Prints one JSON line a seed with each number compared beside its limit.
+Prints one JSON line for each seed and map of the run's pool
+(``genome.pool``), with each number compared beside its limit.
 Needs no card: the reference is NumPy and SciPy on the host.
 """
 
@@ -26,16 +27,16 @@ import genome  # noqa: E402
 import run  # noqa: E402
 
 
-def control(config: dict, seed: int, workdir: str) -> dict:
-    """The control's numbers on the genome of ``seed``."""
-    g = genome.make(config["genome"], seed % (1 << 63))
+def control(config: dict, seed: int, workdir: str, map_seed: int) -> dict:
+    """The control's numbers on the genome of ``seed`` and ``map_seed``."""
+    g = genome.make(config["genome"], seed % (1 << 63), map_seed=map_seed)
     paths = genome.write_hicpro(g, os.path.join(workdir, "hicpro"))
     del g
     compare.write_outputs(compare.Reference(paths, config, np.float32),
                           os.path.join(workdir, "control", "files"))
     ok, numbers = compare.judge_jobs(compare.Reference(paths, config, np.float64),
                                      [os.path.join(workdir, "control")])
-    return {"seed": seed, "correct": ok,
+    return {"seed": seed, "map_seed": map_seed, "correct": ok,
             "checks": {k: {"value": v, "limit": compare.LIMITS.get(k)} for k, v in numbers.items()}}
 
 
@@ -46,11 +47,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     _entry, config, _mix, _e2e, _layer = run.cell(args.workload)
     for seed in args.seeds:
-        tmp = tempfile.mkdtemp(prefix="hicbench-control-")
-        try:
-            print(json.dumps(control(config, seed, tmp)), flush=True)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        for map_seed in genome.pool(config["genome"], seed % (1 << 63)):
+            tmp = tempfile.mkdtemp(prefix="hicbench-control-")
+            try:
+                print(json.dumps(control(config, seed, tmp, map_seed)), flush=True)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 

@@ -4,15 +4,18 @@ written as the HiC-Pro files the assembler reads.
 A configuration's ``genome`` recipe fixes the layout (how many chromosomes,
 how many scaffolds each, their bin counts) from its ``layout_seed``, and the
 draft (strands, base-pair sizes, draft order) from its ``draft_seed``: the
-deployment's draft assembly.  ``--seed`` draws the Hi-C map over that draft
-(the contact jitter, which pairs of bins across chromosomes touch, the
-biases) and the sequence, restriction sites and read pairs.  The contact
-model is a power-law decay with distance inside a chromosome, a uniform
-jitter, and sparse contacts between chromosomes.
+deployment's draft assembly.  A map seed draws the Hi-C map over that
+draft (the contact jitter, which pairs of bins across chromosomes touch, the
+biases), and ``--seed`` the sequence, restriction sites and read pairs.  A
+recipe with ``map_seeds`` has a fixed pool of maps, which every ``--seed``
+runs, in an order of its own (``pool``): the map sets how much work an
+assembly is, so every seed gets the same; without it ``--seed`` is the one
+map seed.  The contact model is a power-law decay with distance inside a
+chromosome, a uniform jitter, and sparse contacts between chromosomes.
 
 The draws follow the order of the repository's synthetic fixture
-generator: the map's stream is ``default_rng(seed)`` advanced past the
-draft's draws, so at ``seed == draft_seed`` the matrix, bed, bias and sizes
+generator: the map's stream is ``default_rng(map_seed)`` advanced past the
+draft's draws, so at ``map_seed == draft_seed`` the matrix, bed, bias and sizes
 files are the fixture's bytes.  The matrix is built one block of rows at a
 time and its text is formatted with array arithmetic, not a Python loop a
 line.  The sequence, restriction sites and read pairs are drawn in bulk
@@ -91,19 +94,26 @@ def _draft(chroms: Tuple[Tuple[int, ...], ...], res: int,
     return [made[i] for i in rng.permutation(len(made))]
 
 
-def make(recipe: Dict, seed: int, n_chroms: int = 0) -> Genome:
+def pool(recipe: Dict, seed: int) -> List[int]:
+    """The map seeds a run of ``seed`` assembles, in its order: the
+    recipe's ``map_seeds`` permuted by ``seed``, or ``seed`` alone."""
+    maps = recipe.get("map_seeds") or [seed]
+    return [int(maps[i]) for i in np.random.default_rng([seed, 4]).permutation(len(maps))]
+
+
+def make(recipe: Dict, seed: int, n_chroms: int = 0, map_seed: int = None) -> Genome:
     """The genome of ``recipe`` and ``seed``; ``n_chroms`` > 0 keeps the
     first chromosomes of the layout (the warm-up genome).  The draft
     (strands, sizes, draft order) is the recipe's own, from its
-    ``draft_seed``; ``seed`` draws the contact map over it and the biases
-    here, the sequence, restriction sites and read pairs in
-    ``write_hicpro``."""
+    ``draft_seed``; ``map_seed`` (``seed`` unless given) draws the contact
+    map over it and the biases here, ``seed`` the sequence, restriction
+    sites and read pairs in ``write_hicpro``."""
     chroms = layout(recipe)
     if n_chroms:
         chroms = chroms[:n_chroms]
     res = int(recipe["resolution"])
     scaffolds = _draft(chroms, res, np.random.default_rng(recipe["draft_seed"]))
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed if map_seed is None else map_seed)
     _draft(chroms, res, rng)  # the map's stream starts where the fixture's does
     starts = {c: np.concatenate([[0], np.cumsum(counts)[:-1]]) for c, counts in enumerate(chroms)}
     n = sum(s.n_bins for s in scaffolds)

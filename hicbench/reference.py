@@ -806,11 +806,17 @@ class Chromosome:
         S, G = len(self.names), int(self.sizes.sum()) + 1
         keys = ((np.asarray(a) * S + b) * 4 + e) * G + gap
         uniq, inv = np.unique(keys, return_inverse=True)
-        g = uniq % G
         rest = uniq // G
-        pos = np.arange(self.span)[None, :] + 1 + g[:, None]
-        vals = (self.H[rest // 4 // S, rest // 4 % S, rest % 4] * w[pos]).sum(axis=1)
-        return vals[inv.reshape(-1)]
+        return self.distinct_values(rest // 4 // S, rest // 4 % S, rest % 4, uniq % G, w)[
+            inv.reshape(-1)]
+
+    def distinct_values(self, a, b, e, gap, w) -> np.ndarray:
+        """``pair_values`` of each (a, b, orientation pair, gap), one row
+        sum a key: the same bits whatever else the batch holds."""
+        S = len(self.names)
+        h = np.take(self.H.reshape(-1, self.span), (np.asarray(a) * S + b) * 4 + e, axis=0)
+        h *= np.take(np.lib.stride_tricks.sliding_window_view(w[1:], self.span), gap, axis=0)
+        return h.sum(axis=1)
 
     def costs(self, ids: np.ndarray, orients: np.ndarray, w, const) -> np.ndarray:
         """Costs of candidate arrangements [N, k] of scaffold ids with their
@@ -838,6 +844,54 @@ def _earliest_best(costs: np.ndarray) -> int:
     """The earliest candidate within 1e-12 (relative) of the best."""
     best = float(costs.max())
     return int(np.nonzero(costs >= best - 1e-12 * max(abs(best), 1.0))[0][0])
+
+
+def _insertion_costs(ch: Chromosome, order: List[int], flags: List[int], new: int,
+                     state: int, w: np.ndarray, const: float) -> np.ndarray:
+    """``ch.costs`` of every insertion of scaffold ``new`` into ``order``:
+    slot by slot, the orientation ``state`` first and then the other,
+    ``state`` flipping from one slot to the next.  Each candidate's pair
+    values are those of ``ch.costs``, gathered from the K^2 pairs of the
+    order as it stands (straddling the slot or not) and the 2 K (K + 1)
+    placements of ``new``, and summed in the same layout: the same bits."""
+    K = len(order)
+    if K == 0:
+        return np.full(2, const, dtype=np.float64)
+    ids, fl = np.asarray(order), np.asarray(flags)
+    ln = ch.sizes[ids]
+    off = np.concatenate([[0], np.cumsum(ln)])          # off[s]: bins before slot s
+    ln_new = int(ch.sizes[new])
+    # the order's own pairs (i < j), apart and with ``new`` between them
+    i, j = np.triu_indices(K, k=1)
+    gap = off[j] - off[i] - ln[i]
+    e = 2 * fl[i] + fl[j]
+    old = ch.distinct_values(np.tile(ids[i], 2), np.tile(ids[j], 2), np.tile(e, 2),
+                             np.concatenate([gap, gap + ln_new]), w)
+    # ``new`` at slot s with orientation o, beside order[k]: before it when k >= s
+    o, slot, k = (x.ravel() for x in np.meshgrid([0, 1], np.arange(K + 1), np.arange(K),
+                                                 indexing="ij"))
+    before = k >= slot
+    placed = ch.distinct_values(np.where(before, new, ids[k]), np.where(before, ids[k], new),
+                                np.where(before, 2 * o + fl[k], 2 * fl[k] + o),
+                                np.where(before, off[k] - off[slot], off[slot] - off[k] - ln[k]), w)
+    table = np.concatenate([old, placed])
+    # each candidate's pairs (p < q) of its K + 1 places, as ``ch.costs`` lays
+    # them out: the order's own pairs in their order (shifted where they
+    # straddle the slot), and ``new``'s K pairs where p or q is the slot
+    n_old, slots = len(i), np.arange(K + 1, dtype=np.int32)[:, None]
+    p, q = (x.astype(np.int32) for x in np.triu_indices(K + 1, k=1))
+    placed_at = (p == slots) | (q == slots)
+    own = np.arange(n_old, dtype=np.int32) + n_old * ((i < slots) & (j >= slots))
+    mine = 2 * n_old + slots * K + np.arange(K, dtype=np.int32)
+    idx = np.empty((K + 1, 2, len(p)), dtype=np.int32)
+    first = idx[:, 0]
+    first[~placed_at] = own.ravel()
+    first[placed_at] = (mine + (state ^ slots % 2) * (K + 1) * K).ravel()
+    # the other orientation of ``new``: its pairs one table of (K + 1) K away
+    idx[:, 1] = first + placed_at * ((1 - 2 * (state ^ slots % 2)) * (K + 1) * K)
+    total = np.full(2 * (K + 1), const, dtype=np.float64)
+    total += table[idx.reshape(2 * (K + 1), -1)].sum(axis=1)
+    return total
 
 
 def _window_costs(ch: Chromosome, order: List[Tuple[int, int]], i: int, w_len: int,
@@ -906,19 +960,11 @@ def order_chromosome(ch: Chromosome, n_scaffolds: int, scan: int
             new, state = remaining.pop(0), 0
         else:
             new, state = order.pop(-1), flags.pop(-1)
-        K = len(order)
-        cand_ids, cand_e, meta = [], [], []
-        for slot in range(K + 1):
-            for o in (state, 1 - state):
-                cand_ids.append(order[:slot] + [new] + order[slot:])
-                cand_e.append(flags[:slot] + [o] + flags[slot:])
-                meta.append((slot, o))
-            state = 1 - state
         w, const = ch.weights(order + [new])
-        costs = ch.costs(np.array(cand_ids), np.array(cand_e), w, const)
+        costs = _insertion_costs(ch, order, flags, new, state, w, const)
         win = _earliest_best(costs)
         best = float(costs[win])
-        slot, o = meta[win] if best > 0.0 else (0, 0)
+        slot, o = (win // 2, state ^ (win // 2) % 2 ^ win % 2) if best > 0.0 else (0, 0)
         order.insert(slot, new)
         flags.insert(slot, o)
         if not remaining:

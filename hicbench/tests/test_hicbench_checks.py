@@ -141,6 +141,7 @@ def test_fault_under_a_whole_run_is_not_correct(small_cell, capsys, fault):
 def test_mutated_output_files_are_not_correct(small_cell, tmp_path):
     import compare
     import genome
+    import run
     import window
 
     _, config, mix, _, _ = small_cell("hic16k_hypergeom.assemble")
@@ -148,7 +149,7 @@ def test_mutated_output_files_are_not_correct(small_cell, tmp_path):
     job = tmp_path / "job"
     job.mkdir()
     sys.modules["matplotlib"] = None
-    window.run_job(str(job), paths, config, mix["parts"], "cpu")
+    window.run_job(str(job), paths, config, mix["parts"], "cpu", run.job_deadline(0), pytest.fail)
     reference = compare.Reference(paths, config)
     ok, numbers = compare.judge_jobs(reference, [str(job)])
     assert ok, numbers
@@ -179,12 +180,14 @@ def test_mutated_output_files_are_not_correct(small_cell, tmp_path):
 @pytest.mark.parametrize("workload", sorted(SMALL))
 def test_control_in_float32_is_not_correct(small_cell, tmp_path, workload):
     import control
+    import genome
 
     _, config, *_ = small_cell(workload)
-    result = control.control(config, 17, str(tmp_path))
-    assert result["correct"] is False
-    check = result["checks"]["cost_rel_err"]
-    assert check["value"] > check["limit"]
+    for map_seed in genome.pool(config["genome"], 17):
+        result = control.control(config, 17, str(tmp_path / str(map_seed)), map_seed)
+        assert result["correct"] is False
+        check = result["checks"]["cost_rel_err"]
+        assert check["value"] > check["limit"]
 
 
 def test_frozen_bounds_equal_the_smoke_tests():

@@ -34,7 +34,9 @@ def test_untraced_run_is_correct_and_reports_end_to_end(small_cell, capsys, work
     assert set(result["metrics"]) == {"job_s", "setup_s"}
     assert result["attempted"] >= 1 and result["failed"] == 0
     assert list(result)[-1] == "checks"
-    assert all(v["value"] <= v["limit"] for v in result["checks"].values())
+    assert result["checks"]["job_deadline_s"] == {"value": 120.0, "limit": None}
+    assert all(v["value"] <= v["limit"] for v in result["checks"].values()
+               if v["limit"] is not None)
     assert err.strip().splitlines()[-1].startswith("check ")
 
 

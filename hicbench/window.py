@@ -5,7 +5,16 @@ A job is one call of ``hic_genome_assembler_tpu_torch.cli.main`` with the
 mix's parts and ``-config <file> -device <device> -mesh off``; its standard
 output goes to a log file in its own directory.  The window starts a new
 job while less than the run's seconds have passed and ends when the last
-job it started ends.
+job it started ends; job k assembles the k-th of the run's inputs, taken in
+turn.
+
+Each job has a deadline, from its own start: past it a ``SIGALRM`` raises
+``JobDeadline`` in the main thread (again every second, should the
+program catch it), so the job counts as failed and ends the window.  A
+watchdog thread armed with the job calls the run's ``overrun`` if the job
+has still not returned ``GRACE_S`` after its deadline (the main thread
+stuck in a C call, or the program swallowing every raise); ``overrun``
+prints the run's result and ends the process.
 
 In a traced run the benchmark wraps the program's functions, without
 editing them, at each layer's entry: a ``torch.profiler.record_function``
@@ -20,6 +29,8 @@ from __future__ import annotations
 import contextlib
 import importlib
 import os
+import signal
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -27,6 +38,8 @@ from typing import Callable, Dict, List, Optional
 import genome
 
 PKG = "hic_genome_assembler_tpu_torch"
+GRACE_S = 30.0   # the watchdog acts this long after a job's deadline
+REPEAT_S = 1.0   # a job past its deadline is raised at again this often
 
 # (module, attribute) of each function a traced run wraps in a span, the
 # entries of the program's layers; parts 3 and 4 are spans as wholes.
@@ -162,10 +175,47 @@ class Tracing:
             yield
 
 
+class JobDeadline(Exception):
+    """A job ran past its deadline."""
+
+
+@contextlib.contextmanager
+def deadline(seconds: float, job: str, overrun: Callable[[str], None]):
+    """Stop the block, which must run in the main thread, ``seconds`` after
+    it starts: raise ``JobDeadline`` in it, and call ``overrun`` with what
+    happened from a watchdog thread if it has not returned ``GRACE_S``
+    later."""
+    done = threading.Event()
+
+    def alarm(signum, frame):
+        raise JobDeadline(f"job {job} ran past its deadline of {seconds:g} s")
+
+    def watch():
+        if not done.wait(seconds + GRACE_S):
+            overrun(f"job {job} had not returned {GRACE_S:g} s after its deadline of "
+                    f"{seconds:g} s")
+
+    watchdog = threading.Thread(target=watch, name=f"hicbench-watchdog-{job}", daemon=True)
+    previous = signal.signal(signal.SIGALRM, alarm)
+    signal.setitimer(signal.ITIMER_REAL, seconds, REPEAT_S)
+    watchdog.start()
+    try:
+        yield
+    finally:
+        try:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+        finally:
+            done.set()
+            signal.signal(signal.SIGALRM, previous)
+            watchdog.join()
+
+
 def run_job(workdir: str, paths: Dict[str, str], config: Dict, parts: List[str],
-            device: str, tracing: Optional[Tracing] = None) -> Job:
+            device: str, deadline_s: float, overrun: Callable[[str], None],
+            tracing: Optional[Tracing] = None) -> Job:
     """One assembly: a config whose outputs land in ``workdir/files``, the
-    CLI on it with its output in ``workdir/log.txt``."""
+    CLI on it with its output in ``workdir/log.txt``, stopped past
+    ``deadline_s`` (``deadline``; the job is named by its directory)."""
     cli = importlib.import_module(f"{PKG}.cli")
     cfg = genome.write_config(os.path.join(workdir, "config.txt"), workdir, paths,
                               config["genome"]["resolution"], config["settings"])
@@ -174,7 +224,8 @@ def run_job(workdir: str, paths: Dict[str, str], config: Dict, parts: List[str],
     if tracing is not None:
         tracing.snapshot.clear()
     t0 = time.perf_counter()
-    with open(os.path.join(workdir, "log.txt"), "w") as log, contextlib.redirect_stdout(log):
+    with open(os.path.join(workdir, "log.txt"), "w") as log, contextlib.redirect_stdout(log), \
+            deadline(deadline_s, os.path.basename(workdir), overrun):
         report = cli.main(argv)
     wall = time.perf_counter() - t0
     after = _launches()
@@ -187,18 +238,21 @@ def run_job(workdir: str, paths: Dict[str, str], config: Dict, parts: List[str],
     return job
 
 
-def run_window(seconds: float, make_dir: Callable[[int], str], paths: Dict[str, str],
-               config: Dict, parts: List[str], device: str,
-               tracing: Optional[Tracing] = None) -> tuple:
-    """Jobs back to back until ``seconds`` have passed; returns (jobs, the
-    job directories, window seconds, the exception that ended a job)."""
+def run_window(seconds: float, make_dir: Callable[[int], str], inputs: List[Dict[str, str]],
+               config: Dict, parts: List[str], device: str, deadline_s: float,
+               overrun: Callable[[str], None], tracing: Optional[Tracing] = None) -> tuple:
+    """Jobs back to back until ``seconds`` have passed, job k on
+    ``inputs[k % len(inputs)]``, each stopped past ``deadline_s``; returns
+    (jobs, the job directories, window seconds, the exception that ended a
+    job)."""
     jobs, dirs, error = [], [], None
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
         d = make_dir(len(dirs))
+        paths = inputs[len(dirs) % len(inputs)]
         dirs.append(d)
         try:
-            jobs.append(run_job(d, paths, config, parts, device, tracing))
+            jobs.append(run_job(d, paths, config, parts, device, deadline_s, overrun, tracing))
         except Exception as exc:  # a job that fails counts as failed, and ends the window
             error = exc
             break
