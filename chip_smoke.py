@@ -24,7 +24,8 @@ passes or fails the run:
    -part4, device cuda, mesh off), with the planted-truth checks; part 2
    must launch the scoring kernels exactly as often as the fixture needs
    (``MAIN_SCORE_LAUNCHES``: 29 profiles, 29 combo top-k, 1,206 pair scores,
-   no block scores), call no plain scoring version on the card and report
+   no block scores, 1,420 exact re-scoring batches), call no plain scoring
+   version on the card and report
    0 precision violations.  Every rank-count launch's batch is recorded
    (K, growing or fixed, the prefix elements a scan and the union; the
    batches in build/chip_smoke_rank_batches.json), every pair-score
@@ -116,6 +117,11 @@ passes or fails the run:
    the same decision, and the block kernel launched; at eight, the
    escalation's split (the block launches' device time, the readback,
    pinned and as pageable copies, and the host's dense decision);
+5d. exact re-scoring: ``csrc/f64_rescore.cu`` at the 16K lump's size
+   (3,430 bins in 260 scaffolds, 64 sliding-window candidates a launch),
+   bit-equal to the host's ``oracle.cost_function`` for four of them, the
+   same bits twice, one launch timed beside its bound and the host's
+   seconds a candidate;
 6. HMM path: the CLI (-part1 -part2 -part3 -part4, device cuda, hmm = True)
    on the 3,715-bin HMM genome; its cut list and part-1 files must equal
    the JAX package's golden record (utils/hmm_golden_3715.json); output in
@@ -234,14 +240,18 @@ SCORE_REPLACES = {
 }
 # the main path's launches are checked for these; block_score runs on escalation only
 # the scoring kernels' launches on the 16K run (29 chromosome groups; they
-# depend on the fixture, not the device): block scores only on escalation
+# depend on the fixture, not the device): block scores only on escalation,
+# and one exact re-scoring a batch of float32 ties (1,922 candidates)
 MAIN_SCORE_LAUNCHES = {"pair_profiles": 29, "combo_score_topk": 29, "block_score": 0,
-                       "pair_score": 1206, "group_argmax": 0, "topk_fold": 0}
+                       "pair_score": 1206, "group_argmax": 0, "topk_fold": 0,
+                       "f64_rescore": 1420}
 # on a (2, 2) mesh each combo and pair launch runs once a data-axis block (the
 # combo launches as partial group triples), and the fold once a combo batch;
-# no score is gathered, so group_argmax runs no time
+# no score is gathered, so group_argmax runs no time; the ties, and so the
+# re-scoring, are the single card's
 MESH_SCORE_LAUNCHES = {"pair_profiles": 29, "combo_score_topk": 58, "block_score": 0,
-                       "pair_score": 2412, "group_argmax": 0, "topk_fold": 29}
+                       "pair_score": 2412, "group_argmax": 0, "topk_fold": 29,
+                       "f64_rescore": 1420}
 FP32_OPS_PER_S = 67e12             # H100 SXM data sheet, f32 outside the tensor cores
 SCORE_SP, SCORE_CP1 = 56, 769      # the 16K run's widest tables: 12,544 rows x 769 columns
 SCORE_W = 56                       # its candidate width (55 scaffolds rounded up to 8)
@@ -258,6 +268,10 @@ EXAMPLE_S = 4                      # its nScaffolds: the combo launches' S
 BATCHES_LOG = REPO / "build" / "chip_smoke_rank_batches.json"  # phase 4's rank-count batches
 GRAFT_LOG = REPO / "build" / "chip_smoke_graft.log"   # phase 12's dry run
 GRAFT_N = 4                        # phase 12's dryrun_multichip positions
+RESCORE_K = 3430                   # phase 5d: the 16K lump's bins (5 x 17,162 / 25)
+RESCORE_SCAFFOLDS = 260            # its scaffolds (5 chromosomes x 52)
+RESCORE_B = 64                     # window candidates a launch
+RESCORE_CHECKED = 4                # of them held to the host's cost_function
 # the kernels phase 12's dry run must launch (rank_counts is count_kernels')
 GRAFT_LAUNCHED = ("pair_profiles", "combo_score_topk", "topk_fold", "pair_score")
 # entry()'s scores: 15 pairs and c0 summed (the kernel against its plain
@@ -450,7 +464,7 @@ PLAIN_SCORERS = ("pair_profiles_plain", "combo_scores_plain", "combo_score_topk_
                  "block_scores_plain", "block_score_topk_plain", "pair_scores_plain",
                  "_group_argmax", "combo_score_topk_partials_plain",
                  "block_score_topk_partials_plain", "_group_partials",
-                 "fold_group_triples_plain")
+                 "fold_group_triples_plain", "f64_rescores_plain")
 
 
 @contextlib.contextmanager
@@ -2245,6 +2259,90 @@ def phase_escalation(torch, np):
     return launches, split
 
 
+def rescore_bound_ms(B, K):
+    """Least time of one exact re-scoring launch of B candidates of K bins,
+    and what sets it, whichever is larger: the bytes, one candidate's
+    K(K - 1)/2 float64 matrix elements (the launch's candidates read one
+    matrix, so the others' elements need not come from HBM again) and each
+    candidate's K int32 bin-order entries, at HBM's rate; or the adds, one
+    an element of each candidate, at half the f64 operations a second (an
+    add issues at the fused multiply-add's rate, counted as two)."""
+    bytes_ms = 1e3 * (8 * (K * (K - 1) // 2) + 4 * B * K) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * (B * K * (K - 1) // 2) / (FP64_OPS_PER_S / 2)
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def window_bin_orders(np, sizes, B, pos, seed, w=5):
+    """B sliding-window candidates of a chromosome of scaffolds ``sizes``:
+    one random order and orientation of the scaffolds, and in each
+    candidate the w scaffolds from ``pos`` rearranged and flipped at
+    random, as bin orders int32 [B, sum(sizes)]."""
+    from hic_genome_assembler_tpu_torch.ops import cost
+
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(sizes))
+    orient = rng.integers(0, 2, len(sizes))
+    rows = []
+    for _ in range(B):
+        o, r = order.copy(), orient.copy()
+        o[pos : pos + w] = rng.permutation(o[pos : pos + w])
+        r[pos : pos + w] = rng.integers(0, 2, w)
+        rows.append(cost.bin_order_of_block(o, r, sizes))
+    return np.stack(rows)
+
+
+def phase_rescore(torch, np):
+    """5d: the exact re-scoring kernel at the lump's size (``RESCORE_K``
+    bins in ``RESCORE_SCAFFOLDS`` scaffolds, a batch of ``RESCORE_B``
+    sliding-window candidates): its first ``RESCORE_CHECKED`` costs bit-equal
+    to the host's ``oracle.cost_function`` of the gather, the same bits
+    twice, then one batch timed (CUDA events a call; the profiler's device
+    time, which stands only where its events equal the launches; CUDA events
+    over calls queued behind a spin, free of the host's time) beside the
+    bound and the host's seconds a candidate.  The roofline share reads the
+    profiler's time, or the queued calls' where the trace missed events.
+    Returns the record."""
+    from hic_genome_assembler_tpu_torch.ops import oracle
+    from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
+
+    K, B = RESCORE_K, RESCORE_B
+    rng = np.random.default_rng(20)
+    cuts = np.sort(rng.choice(np.arange(1, K), RESCORE_SCAFFOLDS - 1, replace=False))
+    sizes = np.diff(np.concatenate([[0], cuts, [K]]))
+    pos = np.arange(K, dtype=np.float64)
+    m = 100.0 / (1.0 + np.abs(pos[:, None] - pos[None, :])) + 0.3 * rng.random((K, K))
+    total = float(np.triu(m, 1).sum())
+    bo = window_bin_orders(np, sizes, B, RESCORE_SCAFFOLDS // 2, 21)
+    M = torch.from_numpy(m).cuda()
+    bo_d = torch.from_numpy(bo).cuda()
+    got = sk.f64_rescores(M, bo_d, total).cpu().numpy()
+    check(np.array_equal(got, sk.f64_rescores(M, bo_d, total).cpu().numpy()),
+          "two re-scoring launches gave other bits")
+    t0 = time.perf_counter()
+    want = [oracle.cost_function(m[np.ix_(b, b)], total) for b in bo[:RESCORE_CHECKED]]
+    host_s = (time.perf_counter() - t0) / RESCORE_CHECKED
+    check(list(got[:RESCORE_CHECKED]) == want,
+          f"the re-scoring kernel differs from oracle.cost_function: {got[:4]} / {want[:4]}")
+    call = cuda_ms(torch, lambda: sk.f64_rescores(M, bo_d, total), 10)
+    device = device_ms(torch, lambda: sk.f64_rescores(M, bo_d, total), "f64_rescore_kernel",
+                       lambda: sk.LAUNCHES["f64_rescore"], iters=10)
+    queued = queued_ms(torch, lambda: sk.f64_rescores(M, bo_d, total), iters=10)
+    timed = device if device is not None else queued
+    bound, by = rescore_bound_ms(B, K)
+    rec = {"name": "f64_rescore", "K": K, "B": B, "call_ms": round(call, 4),
+           "device_ms": None if device is None else round(device, 4),
+           "queued_ms": None if queued is None else round(queued, 4),
+           "bound_ms": round(bound, 6), "bound_by": by,
+           "roofline_pct": None if timed is None else round(100.0 * bound / timed, 2),
+           "host_s_a_candidate": round(host_s, 4), "checked": RESCORE_CHECKED}
+    print(f"exact re-scoring on {CARD}, K = {K}, {B} window candidates a launch: "
+          f"{call:.4f} ms a call, device {device} ms, queued {queued} ms, bound "
+          f"{bound:.6f} ms ({by}); host {host_s:.4f} s a candidate; first "
+          f"{RESCORE_CHECKED} bit-equal to the host")
+    print("[rescore] " + json.dumps(rec))
+    return rec
+
+
 def phase_device_mode(torch, np, workdir, paths, resolution, exact_cuts):
     """-part1 with matrixMode = device on the 16K genome of phase 4."""
     from hic_genome_assembler_tpu_torch import cli
@@ -2619,6 +2717,7 @@ def main():
             score_records[name]["replay"] = replay
         del score_inputs
         escalation_launches, escalation = phase_escalation(torch, np)
+        score_records["f64_rescore"] = phase_rescore(torch, np)
         hmm_launches = phase_hmm_path(torch, hmm_dir)
         # the rank-count record keeps phase 4's count; phase 7 checks its own
         phase_device_mode(torch, np, dev_dir, paths, resolution, exact_cuts)
@@ -2653,7 +2752,7 @@ def main():
     record["dryrun_launches"] = graft_run["rank_counts"]
     print(f"smoke: every phase passed in {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [record] + hmm_records
-                      + [score_records[name] for name in SCORE_REPLACES]}))
+                      + [score_records[name] for name in (*SCORE_REPLACES, "f64_rescore")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@
 Counterpart of ``hic_genome_assembler_tpu/models/part1_cluster.py``, every
 branch: ``hyperGeom`` with ``matrixMode`` ``exact`` or ``device``, and
 ``hmm`` with ``hmmMode`` ``fast`` or ``exact``.  Ingest, distance
-transform, UPGMA, the f64 similarity, log and (exact mode) rank matrix and
-the Louvain tail are the port's copies of the JAX package's host modules.
-On the given torch device run: the rank-count scans of the breakpoint
-search (the port's ``RankCounts``), the rank argsort in device mode
-(``ops/matrix.py``) and the HMM fits of the HMM branch
-(``cluster/hmm_cuts.py``), on one device or, for the rank matrix, on the
-blocks of a mesh.
+transform, the f64 similarity, log and (exact mode) rank matrix and the
+Louvain tail are the port's copies of the JAX package's host modules (the
+exact rank matrix by ``ops/matrix.rank_rows_desc_host``: numpy's argsort of
+each row, rows shared out to threads a batch at a time).  On the given
+torch device run: UPGMA's linkage on a CUDA device (``ops/linkage.py``,
+scipy's bits), the rank-count scans of the breakpoint search (the port's
+``RankCounts``), the rank argsort in device mode (``ops/matrix.py``) and
+the HMM fits of the HMM branch (``cluster/hmm_cuts.py``), on one device
+or, for the rank matrix, on the blocks of a mesh.
 """
 
 from __future__ import annotations
@@ -252,7 +254,7 @@ def run_pipeline(
         adj = oracle.to_distance(adj)
     labels = [b.chrom + "_" + str(b.ID) for b in bin_list]
     with profiling.timer("part1/upgma"):
-        dendro = upgma.average_cluster_leaf_order(adj, labels)
+        dendro = upgma.average_cluster_leaf_order(adj, labels, device=device)
     filebus.write_dendrogram_leaf_order(dendro["ivl"], dendro["leaves"], dendrogram_order_file)
     dendro = filebus.read_dendrogram_leaf_order(dendrogram_order_file)
     leaves = dendro["leaves"]
@@ -287,7 +289,7 @@ def run_pipeline(
                 ]
                 del blocks
             else:
-                rank_mat = oracle.rank_matrix_desc(adj)
+                rank_mat = matrix.rank_rows_desc_host(adj)
             counts = breakpoints.RankCounts(rank_mat, device, mesh=mesh)
             del rank_mat
             initial = breakpoints.pre_process_all_matrix_breakpoints(
@@ -296,8 +298,11 @@ def run_pipeline(
             cut_indices = breakpoints.filter_noisy_breakpoints(counts, initial, psig=psig)
             rank_where = counts.where
             del counts  # frees the device copy of the rank matrix
-            with profiling.timer("part1/log_transform"):
-                adj = oracle.log_transform(adj, log_base=10, plus_one=True)
+            if (modularity and modularity > 0.0) or (
+                avg_cluster_plot_outlined and plots.available()
+            ):  # only the Louvain tail and the outlined plot read the log matrix
+                with profiling.timer("part1/log_transform"):
+                    adj = oracle.log_transform(adj, log_base=10, plus_one=True)
         elif hmm:
             adj = oracle.to_similarity(adj, row_sums)
             with profiling.timer("part1/log_transform"):

@@ -256,7 +256,7 @@ def _brute_force_coro(
     cand_idx, _vals, floor = finish(host)
     winner, best = cost_ops.argmax_reference_ties_sparse(
         cand_idx,
-        rescore=lambda i: sub.score_host(orders[i // R], orients[i % R]),
+        rescore_many=lambda idx: sub.score_host_many(orders[idx // R], orients[idx % R]),
         fast_vals=_vals,
         second_floor=floor,
         escalate=lambda: sub.score_batch(orders, orients),
@@ -327,12 +327,12 @@ def _greedy_coro(
         if not skip and cmax <= -near:
             # gray zone between the cheap skip band and the hard f32 error
             # budget: confirm in f64 that NO candidate above the budget is
-            # actually positive
+            # actually positive (one batch)
+            above = np.nonzero(costs > guard)[0]
             ex_max = -np.inf
-            for ci in np.nonzero(costs > guard)[0]:
-                ex = sub.score_host(cand_orders[int(ci)], cand_orients[int(ci)])
-                chrom.stats.observe(float(costs[ci]), ex)
-                ex_max = max(ex_max, ex)
+            for ci, ex in zip(above, sub.score_host_many(cand_orders[above], cand_orients[above])):
+                chrom.stats.observe(float(costs[ci]), float(ex))
+                ex_max = max(ex_max, float(ex))
             skip = ex_max <= 0.0
         if skip:
             slot, orientation = 0, 0
@@ -340,7 +340,7 @@ def _greedy_coro(
         else:
             winner, best_cost = cost_ops.argmax_reference_ties(
                 costs,
-                rescore=lambda i: sub.score_host(cand_orders[i], cand_orients[i]),
+                rescore_many=lambda idx: sub.score_host_many(cand_orders[idx], cand_orients[idx]),
                 stats=chrom.stats,
             )
             if best_cost <= 0.0:
@@ -433,29 +433,33 @@ def _scan_coro(
                     continue
                 iw = i + k
 
-                def _rescore(c: int, iw=iw) -> float:
-                    o, r = orders_w[c // R], orients_w[c % R]
-                    full_o = list(order_ids)
-                    full_r = list(orient_flags)
-                    full_o[iw : iw + w] = [order_ids[iw + kk] for kk in o]
-                    full_r[iw : iw + w] = list(map(int, r))
-                    key = (tuple(full_o), tuple(full_r))
-                    if key not in f64_cache:
-                        profiling.count("part2/f64_rescore_miss")
-                        f64_cache[key] = sub.score_host(full_o, full_r)
-                    return f64_cache[key]
+                def _rescore_many(cs: np.ndarray, iw=iw) -> np.ndarray:
+                    keys = []
+                    for c in cs:
+                        o, r = orders_w[c // R], orients_w[c % R]
+                        full_o = list(order_ids)
+                        full_r = list(orient_flags)
+                        full_o[iw : iw + w] = [order_ids[iw + kk] for kk in o]
+                        full_r[iw : iw + w] = list(map(int, r))
+                        keys.append((tuple(full_o), tuple(full_r)))
+                    misses = list(dict.fromkeys(k for k in keys if k not in f64_cache))
+                    if misses:
+                        profiling.count("part2/f64_rescore_miss", len(misses))
+                        f64_cache.update(zip(misses, sub.score_host_many(
+                            [o for o, _r in misses], [r for _o, r in misses]).tolist()))
+                    return np.array([f64_cache[k] for k in keys], dtype=np.float64)
 
                 cmax = float(costs.max())
                 if cmax <= trigger:
                     if cmax > guard:
                         # gray zone between the skip trigger and the f32
                         # error budget: confirm the skip in f64 for EVERY
-                        # candidate above the guard
+                        # candidate above the guard (one batch)
+                        above = np.nonzero(costs > guard)[0]
                         ex_max = -np.inf
-                        for ci in np.nonzero(costs > guard)[0]:
-                            ex = _rescore(int(ci))
-                            chrom.stats.observe(float(costs[ci]), ex)
-                            ex_max = max(ex_max, ex)
+                        for ci, ex in zip(above, _rescore_many(above)):
+                            chrom.stats.observe(float(costs[ci]), float(ex))
+                            ex_max = max(ex_max, float(ex))
                         if ex_max <= best_cost:
                             continue
                         # fast precision erred past the trigger: fall
@@ -464,7 +468,7 @@ def _scan_coro(
                         continue
 
                 winner, exact = cost_ops.argmax_reference_ties(
-                    costs, rescore=_rescore, stats=chrom.stats
+                    costs, rescore_many=_rescore_many, stats=chrom.stats
                 )
                 if exact > best_cost:
                     best_cost = exact
@@ -688,8 +692,10 @@ def run_pipeline(
     start = time.time()
     profiling.reset()
     # read as 0 where no candidate is re-scored (``hicbench/metrics``)
-    profiling.declare("part2/f64_rescore")
-    profiling.count("part2/pageable_copies", 0)
+    profiling.declare("part2/f64_rescore", "part2/f64_upload")
+    for name in ("pageable_copies", "f64_rescore_candidates", "f64_rescore_launches",
+                 "f64_rescore_bins", "f64_rescore_elements", "f64_rescore_launch_elements"):
+        profiling.count("part2/" + name, 0)
     stats = cost_ops.PrecisionStats()
     with profiling.timer("part2/ingest"):
         bin_dict = filebus.read_groupings_to_valid_bins(chromosome_group_file)

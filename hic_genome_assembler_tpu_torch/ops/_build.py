@@ -96,11 +96,11 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_PTR, _INT, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 
 # The argument types of every C entry point of csrc/*.cu, in order: each
 # pointer and the cudaStream_t (last) as c_void_p, else ctypes would pass a
-# 32-bit int and cut it.  Every entry point returns its cudaError_t as int.
+# 32-bit int and cut it; a double as c_double.  Every entry point returns its cudaError_t as int.
 SIGNATURES = {
     # R, element bytes, row stride, n_rows, n_cols, row0, col0, plan, n_chunks,
     # max_bins, max_groups, out [K, n_rows]
@@ -149,6 +149,12 @@ SIGNATURES = {
     # best_centers, best_labels, best_inertia
     "kmeans_choose": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                       _PTR],
+    # M [C, C] f64, row stride, bin orders int32 [B, K], B, K, numpy's chunk, total,
+    # traces scratch [B, K], tickets [B] (zeroed), costs [B]
+    "f64_rescore": [_PTR, _I64, _PTR, _INT, _INT, _INT, _F64, _PTR, _PTR, _PTR, _PTR],
+    # W [n, n] f64 (made symmetric, consumed), n, size int32 [n], chain int32 [n],
+    # merges zx, zy int32 [n - 1], zd f64 [n - 1], zs int32 [n - 1]
+    "upgma_linkage": [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
 }
 
 

@@ -10,9 +10,13 @@ and ``ChromosomeScorer`` factors it by scaffold pairs: one device pass over
 the C x C submatrix builds the pair profiles h[(s*Sp+t)*4+e, m]; per
 scaffold subset the table F = h @ Wm gives every candidate's score in
 O(S^2) gathers.  Device scores are float32 (TF32 off, see ``device.py``);
-the winners are re-scored on the host in float64 with the reference's
-exact summation order, and ``_F32_MARGIN`` bounds which candidates must be
-re-scored (``docs/PRECISION.md``).
+the winners are re-scored in float64 with the reference's exact
+summation order, and ``_F32_MARGIN`` bounds which candidates must be
+re-scored (``docs/PRECISION.md``).  A decision re-scores its candidates in
+batches (``rescore_many``), and a batch's memo misses go to
+``score_kernels.f64_rescores``: on the card one launch that reads the
+chromosome's float64 matrix through each candidate's bin order, on the CPU
+the host's gather and ``oracle.cost_function``, with the same bits.
 
 The device functions are ``ops/score_kernels.py``: on a CUDA device the
 pair profiles, the combo top-k, the block scores (and their top-k) and the
@@ -41,7 +45,6 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hic_genome_assembler_tpu_torch.ops import oracle
 from hic_genome_assembler_tpu_torch.ops import score_kernels as sk
 from hic_genome_assembler_tpu_torch.ops.score_kernels import (  # noqa: F401
     group_argmax as _group_argmax,  # the JAX module's name (ops/cost.py:251); no caller here
@@ -213,7 +216,9 @@ class ChromosomeScorer:
 
     ``device_sub``: optional float32 copy of ``sub_matrix`` already on the
     device (sliced from the genome matrix by the part-2 driver);
-    ``sub_matrix`` is still required for the f64 host bookkeeping.
+    ``sub_matrix`` is still required for the f64 host bookkeeping, and goes
+    to the device as float64 at the first exact re-score
+    (:meth:`exact_costs`), where it stays while the scorer lives.
     ``stats``: the run's ``PrecisionStats``.  ``mesh``: candidate batches
     are split over its data axis (see the module docstring); the table is
     built on the mesh's first device, which ``device`` is then taken as.
@@ -241,6 +246,7 @@ class ChromosomeScorer:
         if sub.shape != (self.C, self.C):
             raise ValueError(f"submatrix {sub.shape} does not match {self.C} bins")
         self._sub = sub
+        self._sub_f64: Optional[torch.Tensor] = None  # ``sub`` on the device, at first use
 
         # Shape buckets, as in the JAX package (its executables are keyed
         # on them); kept so that the table layout maps one to one.
@@ -288,6 +294,22 @@ class ChromosomeScorer:
     def cand_width(self) -> int:
         """Bucketed candidate width for fixed-shape search batches."""
         return _round_up(max(self.S, 1), 8)
+
+    def exact_costs(self, bin_orders: np.ndarray, total: float) -> np.ndarray:
+        """Reference-exact float64 costs of candidates given as bin orders
+        (int32 [B, K]) with a subset's ``total``: one batch of
+        ``score_kernels.f64_rescores`` over the chromosome's float64 matrix,
+        uploaded once through pinned memory at the first batch."""
+        if self._sub_f64 is None:
+            with profiling.timer("part2/f64_upload"):
+                self._sub_f64 = transfer.to_device(self._sub, self.device)
+        # every float64 re-score of part 2, from any stage
+        with profiling.timer("part2/f64_rescore"):
+            costs = sk.f64_rescores(
+                self._sub_f64, transfer.to_device(bin_orders, self.device, np.int32), total
+            )
+            (host,) = transfer.to_host([costs])
+        return host
 
     def subset(self, include: Sequence[int]) -> "SubsetScorer":
         """Scorer for candidates drawn from ``include`` (global ids)."""
@@ -589,25 +611,32 @@ class SubsetScorer:
         )
         return (out,), lambda host: np.asarray(host[0], dtype=np.float64)[:B]
 
-    def score_host(self, order: Sequence[int], orient: Sequence[int]) -> float:
-        """Reference-exact f64 cost for one (order, orientation); pad ids
-        are ignored.  Memoized by the candidate's canonical bin order."""
+    def score_host_many(self, orders: Sequence, orients: Sequence) -> np.ndarray:
+        """Reference-exact f64 costs [B] of candidates given as (order,
+        orientation) rows; pad ids are ignored.  Memoized by each
+        candidate's canonical bin order: the misses, each once, are
+        re-scored in one batch (``ChromosomeScorer.exact_costs``)."""
         if self.degenerate:
-            return 0.0
-        order = np.asarray(order)
-        orient = np.asarray(orient)
-        real = order < self.S
-        bin_order = bin_order_of_block(order[real], orient[real], self.sizes)
-        key = bin_order.tobytes()
-        hit = self._host_memo.get(key)
-        if hit is not None:
-            return hit
-        # every float64 re-score of part 2, from any stage
-        with profiling.timer("part2/f64_rescore"):
-            gathered = self.parent._sub[np.ix_(bin_order, bin_order)]
-            out = oracle.cost_function(gathered, self.total)
-        self._host_memo[key] = out
-        return out
+            return np.zeros(len(orders), dtype=np.float64)
+        keys = []
+        misses: dict = {}
+        for order, orient in zip(orders, orients):
+            order = np.asarray(order)
+            orient = np.asarray(orient)
+            real = order < self.S
+            bin_order = bin_order_of_block(order[real], orient[real], self.sizes)
+            key = bin_order.tobytes()
+            keys.append(key)
+            if key not in self._host_memo:
+                misses.setdefault(key, bin_order)
+        if misses:
+            costs = self.parent.exact_costs(np.stack(list(misses.values())), self.total)
+            self._host_memo.update(zip(misses, costs.tolist()))
+        return np.array([self._host_memo[key] for key in keys], dtype=np.float64)
+
+    def score_host(self, order: Sequence[int], orient: Sequence[int]) -> float:
+        """Reference-exact f64 cost for one (order, orientation)."""
+        return float(self.score_host_many([order], [orient])[0])
 
 
 def BlockScorer(
@@ -684,9 +713,23 @@ def _prefilter_margin(vals: np.ndarray) -> np.ndarray:
     return vals >= best - _F32_MARGIN * max(abs(best), 1.0)
 
 
+RescoreMany = Callable[[np.ndarray], Sequence[float]]
+
+
+def _rescore_into(
+    exact: dict, indices: Sequence[int], rescore_many: RescoreMany, fast, stats: PrecisionStats
+) -> None:
+    """``exact[i]`` for each candidate index in ``indices``, re-scored in one
+    batch, each observed against its fast score ``fast(i)`` in order."""
+    indices = [int(i) for i in indices]
+    for i, value in zip(indices, rescore_many(np.asarray(indices, dtype=np.int64))):
+        exact[i] = float(value)
+        stats.observe(fast(i), exact[i])
+
+
 def _decide(
     costs: np.ndarray,
-    rescore: Callable[[int], float],
+    rescore_many: RescoreMany,
     exact: dict,
     rel_tol: float,
     stats: PrecisionStats,
@@ -694,7 +737,8 @@ def _decide(
     """Given fast costs for ALL candidates and a (possibly pre-seeded) f64
     cache, grow the cache until no candidate whose fast score is within
     ``_F32_MARGIN`` of the exact winner is un-rescored, then apply the
-    reference tie rule (earliest index among f64 ties wins)."""
+    reference tie rule (earliest index among f64 ties wins).  Each
+    escalation re-scores its new candidates in one batch."""
     best = max(exact.values())
     while True:
         band = _F32_MARGIN * max(abs(best), 1.0)
@@ -703,9 +747,7 @@ def _decide(
         if not new:
             break
         stats.escalations += 1
-        for i in new:
-            exact[i] = float(rescore(i))
-            stats.observe(float(costs[i]), exact[i])
+        _rescore_into(exact, new, rescore_many, lambda i: float(costs[i]), stats)
         best = max(exact.values())
     tol = rel_tol * max(abs(best), 1.0)
     winners = sorted(i for i, c in exact.items() if c >= best - tol)
@@ -714,7 +756,7 @@ def _decide(
 
 def argmax_reference_ties_sparse(
     cand_indices: np.ndarray,
-    rescore: Callable[[int], float],
+    rescore_many: RescoreMany,
     rel_tol: float = 1e-12,
     fast_vals: Optional[np.ndarray] = None,
     second_floor: Optional[float] = None,
@@ -723,7 +765,8 @@ def argmax_reference_ties_sparse(
     stats: PrecisionStats,
 ) -> Tuple[int, float]:
     """Reference tie rule over a sparse candidate set (device top-k):
-    f64-rescore the plausible candidates, earliest index among ties wins.
+    f64-rescore the plausible candidates (``rescore_many(indices)``, one
+    batch a step), earliest index among ties wins.
     ``fast_vals`` enables the f32-margin prefilter; ``second_floor`` (the
     kernel's bound on every candidate it did not return) plus ``escalate``
     (-> full fast-cost vector) re-run the decision densely when the floor
@@ -736,10 +779,8 @@ def argmax_reference_ties_sparse(
     fmap = {}
     if fv is not None:
         fmap = {int(i): float(v) for i, v in zip(cand_indices, fv)}
-    exact = {}
-    for i in sel:
-        exact[int(i)] = float(rescore(int(i)))
-        stats.observe(fmap.get(int(i), np.nan), exact[int(i)])
+    exact: dict = {}
+    _rescore_into(exact, sel, rescore_many, lambda i: fmap.get(i, np.nan), stats)
     best = max(exact.values())
     if fv is not None:
         while True:
@@ -751,9 +792,7 @@ def argmax_reference_ties_sparse(
             if not new:
                 break
             stats.escalations += 1
-            for i in new:
-                exact[i] = float(rescore(i))
-                stats.observe(fmap[i], exact[i])
+            _rescore_into(exact, new, rescore_many, lambda i: fmap[i], stats)
             best = max(exact.values())
     band = _F32_MARGIN * max(abs(best), 1.0)
     if (
@@ -765,7 +804,7 @@ def argmax_reference_ties_sparse(
         # full fast-cost vector and decide densely (rare by design)
         stats.escalations += 1
         full = np.asarray(escalate(), dtype=np.float64)
-        return _decide(full, rescore, exact, rel_tol, stats)
+        return _decide(full, rescore_many, exact, rel_tol, stats)
     tol = rel_tol * max(abs(best), 1.0)
     winners = sorted(i for i, c in exact.items() if c >= best - tol)
     return winners[0], exact[winners[0]]
@@ -773,21 +812,22 @@ def argmax_reference_ties_sparse(
 
 def argmax_reference_ties(
     costs: np.ndarray,
-    rescore: Optional[Callable[[int], float]] = None,
+    rescore_many: Optional[RescoreMany] = None,
     k: int = 64,
     rel_tol: float = 1e-12,
     *,
     stats: PrecisionStats,
 ) -> Tuple[int, float]:
     """Pick the winning candidate the way the reference does: the
-    earliest index attaining the max.  With ``rescore(index) -> f64`` the
-    top-k are re-scored and the set grows until every candidate whose
-    fast score is within ``_F32_MARGIN`` of the exact winner has been
-    re-scored; candidates within ``rel_tol`` of the best count as ties."""
+    earliest index attaining the max.  With ``rescore_many(indices) ->
+    f64 costs`` the prefiltered top-k are re-scored in one batch and the
+    set grows until every candidate whose fast score is within
+    ``_F32_MARGIN`` of the exact winner has been re-scored; candidates
+    within ``rel_tol`` of the best count as ties."""
     n = costs.shape[0]
     if n == 0:
         raise ValueError("no candidates")
-    if rescore is None or n <= 1:
+    if rescore_many is None or n <= 1:
         best = float(costs.max())
         ties = np.nonzero(costs >= best - rel_tol * max(abs(best), 1.0))[0]
         return int(ties[0]), best
@@ -795,9 +835,6 @@ def argmax_reference_ties(
     k = min(k, n)
     top = np.argpartition(-costs, k - 1)[:k]
     top = top[_prefilter_margin(costs[top])]
-    exact = {}
-    for i in top:
-        i = int(i)
-        exact[i] = float(rescore(i))
-        stats.observe(float(costs[i]), exact[i])
-    return _decide(costs, rescore, exact, rel_tol, stats)
+    exact: dict = {}
+    _rescore_into(exact, top, rescore_many, lambda i: float(costs[i]), stats)
+    return _decide(costs, rescore_many, exact, rel_tol, stats)

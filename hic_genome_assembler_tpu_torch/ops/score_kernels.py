@@ -17,7 +17,10 @@ which XLA fuses into kernels on the TPU:
   :func:`fold_group_triples` — the mesh paths' ``_group_argmax``: each
   data-axis block reduces the groups it holds to partial (max, argmax,
   second) triples, and one fold merges the blocks' triples;
-* :func:`pair_scores` — ``_pair_score_kernel`` (``:402-417``).
+* :func:`pair_scores` — ``_pair_score_kernel`` (``:402-417``);
+* :func:`f64_rescores` — part 2's exact float64 re-scoring of a batch of
+  candidates (``SubsetScorer.score_host``, ``:592-608``, which the JAX
+  package runs on the host, one candidate at a time).
 
 On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/score_kernels.cu`` (or raises); on a CPU tensor it runs the plain
@@ -41,13 +44,14 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from hic_genome_assembler_tpu_torch.ops import oracle
 from hic_genome_assembler_tpu_torch.utils import profiling
 
 # Kernel launches made by the wrappers below (read by chip_smoke.py to show
 # that the main path went through the kernels).
 LAUNCHES = {
     "pair_profiles": 0, "combo_score_topk": 0, "block_score": 0, "pair_score": 0,
-    "group_argmax": 0, "topk_fold": 0,
+    "group_argmax": 0, "topk_fold": 0, "f64_rescore": 0,
 }
 
 # Candidates one block of the top-k kernels reduces (a group larger than
@@ -865,4 +869,71 @@ def pair_scores(F_flat, sizes, cand, c0) -> torch.Tensor:
     _launch("pair_score", F_flat.device, lib.pair_score,
             F_flat.data_ptr(), Cp1, sizes.data_ptr(), sizes.shape[0], cand.data_ptr(), B,
             cand.shape[1] // 2, c0.data_ptr(), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Exact float64 re-scoring
+# ---------------------------------------------------------------------------
+
+_RESCORE = "part2/f64_rescore_"
+
+
+def trace_chunk() -> int:
+    """The chunk in which numpy's reduction, and so ``np.trace``, takes a
+    strided diagonal: its buffer size.  Each chunk is summed pairwise and
+    the chunks' sums are added in order."""
+    chunk = int(np.getbufsize())
+    if chunk < 8 or chunk % 8:
+        raise ValueError(f"numpy's buffer of {chunk} elements is not a multiple of 8")
+    return chunk
+
+
+def f64_rescores_plain(M, bin_orders, total: float) -> torch.Tensor:
+    """Plain version of :func:`f64_rescores`, on the host: each bin order's
+    gather of ``M`` (``np.ix_``) scored by ``oracle.cost_function``."""
+    m = M.numpy()
+    return torch.tensor([oracle.cost_function(m[np.ix_(bo, bo)], total)
+                         for bo in bin_orders.numpy()], dtype=torch.float64)
+
+
+def f64_rescores(M, bin_orders, total: float) -> torch.Tensor:
+    """Exact float64 costs [B] of candidates given as bin orders:
+    ``bin_orders`` int32 [B, K], each row K distinct rows of the group's
+    float64 matrix ``M`` [C, C], and each cost
+    ``oracle.cost_function(M[np.ix_(bo, bo)], total)`` bit for bit.  On a
+    CUDA tensor ``csrc/f64_rescore.cu`` reads ``M`` through each bin order,
+    one launch for up to 65,535 candidates (or raises); on a CPU tensor the
+    plain version.  Counts the candidates, their bins (``K`` each), their
+    matrix elements (``K(K - 1)/2`` each) and the launches under
+    ``part2/f64_rescore_*``, and under ``..._launch_elements`` the elements
+    each launch reads at least: one candidate's ``K(K - 1)/2``, all distinct,
+    since every candidate of a launch reads the same matrix."""
+    dev = M.device
+    _tensor(M, "M", (torch.float64,), 2, dev)
+    _tensor(bin_orders, "bin_orders", _IDS, 2, dev)
+    B, K = bin_orders.shape
+    if M.shape[0] != M.shape[1] or K > M.shape[0]:
+        raise ValueError(f"{K} bins a candidate over a matrix of shape {tuple(M.shape)}")
+    profiling.count(_RESCORE + "candidates", B)
+    profiling.count(_RESCORE + "bins", B * K)
+    profiling.count(_RESCORE + "elements", B * K * (K - 1) // 2)
+    if dev.type == "cpu":
+        return f64_rescores_plain(M, bin_orders, total)
+    if dev.type != "cuda":
+        raise ValueError(f"the re-scoring runs on cuda or cpu, not {dev}")
+    if B == 0 or K < 2:
+        return torch.zeros(B, dtype=torch.float64, device=dev)
+    out = torch.empty(B, dtype=torch.float64, device=dev)
+    rows = min(B, _MAX_GRID_Y)
+    traces = torch.empty((rows, K), dtype=torch.float64, device=dev)
+    tickets = torch.zeros(rows, dtype=torch.int32, device=dev)
+    lib = _library()
+    for b0 in range(0, B, rows):
+        nb = min(rows, B - b0)
+        _launch("f64_rescore", dev, lib.f64_rescore, M.data_ptr(), M.stride(0),
+                bin_orders[b0:].data_ptr(), nb, K, trace_chunk(), float(total),
+                traces.data_ptr(), tickets.data_ptr(), out[b0:].data_ptr())
+        profiling.count(_RESCORE + "launches")
+        profiling.count(_RESCORE + "launch_elements", K * (K - 1) // 2)
     return out

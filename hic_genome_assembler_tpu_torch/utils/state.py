@@ -89,6 +89,7 @@ def chromosome_scorer_from_numpy(
     scorer.S = len(scorer.sizes)
     scorer.C = int(scorer.sizes.sum())
     scorer._sub = np.asarray(arrays["_sub"], dtype=np.float64)
+    scorer._sub_f64 = None
     scorer.intra_profile = np.asarray(arrays["intra_profile"], dtype=np.float64)
     scorer.intra_total = np.asarray(arrays["intra_total"], dtype=np.float64)
     scorer.cross_total = np.asarray(arrays["cross_total"], dtype=np.float64)

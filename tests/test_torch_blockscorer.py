@@ -95,13 +95,14 @@ def test_topk_matches_jax(seed, k, chunk_orders):
     np.testing.assert_array_equal(np.sort(idx), np.sort(np.asarray(idx_t)))
     assert floor == pytest.approx(floor_t, rel=1e-12)
 
-    def rescore(scorer):
-        return lambda i: scorer.score_host(orders[i // R], orients[i % R])
+    def rescore_many(idx):
+        return ours.score_host_many(orders[idx // R], orients[idx % R])
 
-    w_sparse, _ = cost.argmax_reference_ties_sparse(idx, rescore=rescore(ours),
+    w_sparse, _ = cost.argmax_reference_ties_sparse(idx, rescore_many=rescore_many,
                                                     stats=ours.stats)
-    w_dense, _ = cost.argmax_reference_ties(full, rescore=rescore(ours), stats=ours.stats)
-    w_jax, _ = jax_cost.argmax_reference_ties_sparse(np.asarray(idx_t), rescore=rescore(theirs))
+    w_dense, _ = cost.argmax_reference_ties(full, rescore_many=rescore_many, stats=ours.stats)
+    w_jax, _ = jax_cost.argmax_reference_ties_sparse(
+        np.asarray(idx_t), rescore=lambda i: theirs.score_host(orders[i // R], orients[i % R]))
     assert w_sparse == w_dense == w_jax
 
 
@@ -133,10 +134,12 @@ def test_sparse_floor_escalation_pulls_full_vector():
     fast = exact_vals.copy()
     cand = np.array([999, 500, 100])
     results = []
-    for module, kwargs in ((cost, {"stats": cost.PrecisionStats()}), (jax_cost, {})):
+    for module, kwargs in ((cost, {"stats": cost.PrecisionStats(),
+                                   "rescore_many": lambda idx: exact_vals[idx]}),
+                           (jax_cost, {"rescore": lambda i: float(exact_vals[i])})):
         called = []
         results.append(module.argmax_reference_ties_sparse(
-            cand, rescore=lambda i: float(exact_vals[i]), fast_vals=fast[cand],
+            cand, fast_vals=fast[cand],
             second_floor=float(fast[true_winner]),
             escalate=lambda: called.append(1) or fast, **kwargs))
         assert called == [1]
@@ -155,8 +158,9 @@ def test_sparse_prefiltered_candidate_readded_by_escalation():
     stats = cost.PrecisionStats()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        ours = cost.argmax_reference_ties_sparse(cand, rescore=lambda i: exact_vals[i],
-                                                 fast_vals=fast, stats=stats)
+        ours = cost.argmax_reference_ties_sparse(
+            cand, rescore_many=lambda idx: [exact_vals[i] for i in idx], fast_vals=fast,
+            stats=stats)
         theirs = jax_cost.argmax_reference_ties_sparse(cand, rescore=lambda i: exact_vals[i],
                                                        fast_vals=fast)
     assert ours == theirs == (10, 7.0)

@@ -217,7 +217,7 @@ def _device_search(m, sizes, k=16):
     idx, vals, floor = scorer.score_batch_topk(orders, orients, k=k)
     return cost.argmax_reference_ties_sparse(
         idx,
-        rescore=lambda i: scorer.score_host(orders[i // R], orients[i % R]),
+        rescore_many=lambda idx: scorer.score_host_many(orders[idx // R], orients[idx % R]),
         fast_vals=vals,
         second_floor=floor,
         escalate=lambda: scorer.score_batch(orders, orients),
@@ -281,7 +281,7 @@ def test_dense_escalation_recovers_suppressed_winner():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         w, b = cost.argmax_reference_ties(
-            fast, rescore=lambda i: float(exact_vals[i]), k=4, stats=stats
+            fast, rescore_many=lambda idx: exact_vals[idx], k=4, stats=stats
         )
     assert (w, b) == (137, 10.0)
     assert stats.violations > 0

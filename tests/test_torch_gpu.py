@@ -20,10 +20,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hic_genome_assembler_tpu_torch import cli  # noqa: E402
 from hic_genome_assembler_tpu_torch.cluster import breakpoints as bp  # noqa: E402
+from hic_genome_assembler_tpu_torch.cluster import upgma  # noqa: E402
 from hic_genome_assembler_tpu_torch.models import part2_order  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import cost  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import count_kernels as ck  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import gaussian_hmm, hmm_kernels, kmeans, matrix  # noqa: E402
+from hic_genome_assembler_tpu_torch.ops import linkage, oracle  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import perms  # noqa: E402
 from hic_genome_assembler_tpu_torch.ops import score_kernels as sk  # noqa: E402
 from hic_genome_assembler_tpu_torch.parallel import mesh as pm  # noqa: E402
@@ -1360,3 +1362,130 @@ def test_graft_dryrun_over_four_cards(capsys):
     graft.dryrun_multichip(4)
     out = capsys.readouterr().out
     assert "dryrun_multichip OK: 4 positions over 4 cards (cuda:0, cuda:1, cuda:2, cuda:3)" in out
+
+
+# ---------------------------------------------------------------------------
+# Exact float64 re-scoring (csrc/f64_rescore.cu)
+# ---------------------------------------------------------------------------
+
+
+def _rescore_problem(K, seed, extra=3):
+    """An asymmetric float64 matrix of K + extra rows with values over seven
+    orders of magnitude, and bin orders of K of its rows: the identity, its
+    reverse, scaffolds in a random order with random orientations, and a
+    subset (greedy insertion's candidates hold some scaffolds only)."""
+    rng = np.random.default_rng(seed)
+    C = K + extra
+    m = rng.random((C, C)) ** 3 * 10.0 ** rng.uniform(-3, 4, (C, C))
+    m[np.tril_indices(C)] *= 7.0  # M[a, b] != M[b, a]: a transposed read shows
+    cuts = np.sort(rng.choice(np.arange(1, C), min(C - 1, max(1, C // 13)), replace=False))
+    sizes = np.diff(np.concatenate([[0], cuts, [C]]))
+    order = rng.permutation(len(sizes))
+    orient = rng.integers(0, 2, len(sizes))
+    scaffolds = cost.bin_order_of_block(order, orient, sizes)
+    orders = [np.arange(K), np.arange(K)[::-1], scaffolds[:K],
+              np.sort(rng.choice(C, K, replace=False))[rng.permutation(K)]]
+    return m, np.stack(orders).astype(np.int32), float(rng.uniform(1.0, 1e6))
+
+
+@pytest.mark.parametrize("K", [2, 9, 129, 3430, 8193, 8200])
+def test_f64_rescore_kernel_bit_equal_to_oracle(cuda, K):
+    """Every cost equals ``oracle.cost_function`` of the ``np.ix_`` gather
+    bit for bit (at K = 8,193 the first diagonal fills numpy's 8,192-element
+    chunk, at 8,200 the first seven cross it), two launches give the same
+    bits, and the launch is counted."""
+    from hic_genome_assembler_tpu_torch.ops import oracle
+
+    m, bo, total = _rescore_problem(K, K)
+    if K > 4000:
+        bo = bo[[0, 2, 3]]  # the host's cost_function takes seconds a candidate here
+    M, bo_d = torch.from_numpy(m).to(cuda), torch.from_numpy(bo).to(cuda)
+    before = sk.LAUNCHES["f64_rescore"]
+    got = sk.f64_rescores(M, bo_d, total)
+    assert sk.LAUNCHES["f64_rescore"] == before + 1
+    assert torch.equal(got, sk.f64_rescores(M, bo_d, total))
+    want = [oracle.cost_function(m[np.ix_(b, b)], total) for b in bo]
+    assert got.cpu().numpy().tolist() == want
+
+
+def test_f64_rescore_of_one_bin_and_no_candidates(cuda):
+    M = torch.ones((4, 4), dtype=torch.float64, device=cuda)
+    before = sk.LAUNCHES["f64_rescore"]
+    for shape in ((3, 1), (0, 4)):
+        out = sk.f64_rescores(M, torch.zeros(shape, dtype=torch.int32, device=cuda), 2.0)
+        assert out.shape == (shape[0],) and not out.any()
+    assert sk.LAUNCHES["f64_rescore"] == before
+    with pytest.raises(ValueError):
+        sk.f64_rescores(M.float(), torch.zeros((1, 2), dtype=torch.int32, device=cuda), 2.0)
+
+
+def test_cuda_scorer_rescores_on_the_card_only(cuda, monkeypatch):
+    """A scorer on the card re-scores through the kernel, never the host's
+    gather and ``cost_function``, and gives the CPU scorer's costs; its
+    float64 matrix goes up once."""
+    from hic_genome_assembler_tpu_torch.ops import oracle
+
+    m, bo, _total = _rescore_problem(60, 5, extra=0)
+    m = m + m.T
+    sizes = [12, 9, 9, 8, 7, 6, 5, 4]
+    rng = np.random.default_rng(9)
+    orders = np.stack([rng.permutation(8) for _ in range(40)]).astype(np.int32)
+    orients = rng.integers(0, 2, (40, 8)).astype(np.int32)
+    want = cost.ChromosomeScorer(m, sizes, CPU).full().score_host_many(orders, orients)
+
+    def host_path(*args, **kwargs):
+        raise AssertionError("the host re-scored a candidate of a scorer on the card")
+
+    monkeypatch.setattr(oracle, "cost_function", host_path)
+    monkeypatch.setattr(sk, "f64_rescores_plain", host_path)
+    profiling.reset()
+    scorer = cost.ChromosomeScorer(m, sizes, cuda)
+    before = sk.LAUNCHES["f64_rescore"]
+    got = scorer.full().score_host_many(orders, orients)
+    again = scorer.subset(range(8)).score_host_many(orders[::-1], orients[::-1])
+    assert got.tolist() == want.tolist() and again.tolist() == want[::-1].tolist()
+    assert sk.LAUNCHES["f64_rescore"] == before + 2
+    counters, timers = profiling.counters(), profiling.summary()
+    distinct = len({(o.tobytes(), r.tobytes()) for o, r in zip(orders, orients)})
+    assert counters["part2/f64_rescore_launches"] == 2
+    assert counters["part2/f64_rescore_candidates"] == 2 * distinct
+    # each launch reads at least one candidate's pairs of its 60 bins
+    assert counters["part2/f64_rescore_launch_elements"] == 2 * 60 * 59 // 2
+    assert timers["part2/f64_upload"]["calls"] == 1
+
+
+# ---------------------------------------------------------------------------
+# UPGMA's linkage (csrc/upgma.cu)
+# ---------------------------------------------------------------------------
+
+
+def _upgma_distances(n, seed, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "ties":  # few distinct values: equal distances everywhere
+        return rng.integers(1, 5, (n, n)).astype(np.float64) / 4 + 1
+    # the pipeline's own distances: asymmetric, so only the upper triangle counts
+    counts = rng.poisson(3.0, (n, n)).astype(np.float64) + np.eye(n)
+    return oracle.to_distance(counts)
+
+
+@pytest.mark.parametrize("n,kind", [(2, "ties"), (3, "transform"), (97, "ties"),
+                                    (1000, "transform"), (1500, "ties"), (4100, "transform")])
+def test_upgma_linkage_on_cuda_equals_scipy(cuda, n, kind):
+    import scipy.cluster.hierarchy as sch
+    import scipy.spatial.distance as ssd
+
+    d = _upgma_distances(n, n, kind)
+    before = linkage.LAUNCHES["upgma_linkage"]
+    got = linkage.average_linkage(d, cuda)
+    assert linkage.LAUNCHES["upgma_linkage"] == before + 1
+    np.testing.assert_array_equal(got, sch.average(ssd.squareform(d, checks=False)))
+    np.testing.assert_array_equal(linkage.average_linkage(d, cuda), got)  # the same bits again
+
+
+def test_upgma_leaf_order_on_cuda_equals_the_host(cuda):
+    d = _upgma_distances(800, 5, "transform")
+    labels = [f"s_{i}" for i in range(800)]
+    assert upgma.average_cluster_leaf_order(d, labels, device=cuda) == \
+        upgma.average_cluster_leaf_order(d, labels)
+    with pytest.raises(ValueError, match="finite"):
+        linkage.average_linkage(np.full((4, 4), np.inf), cuda)

@@ -352,7 +352,7 @@ def test_cuda_source_stands_alone_and_names_what_it_replaces(cu):
 def test_every_entry_point_has_its_ctypes_signature():
     """``_build.SIGNATURES`` holds every ``extern "C"`` function of csrc/*.cu
     with one ctypes type a parameter: c_void_p for pointers and the stream,
-    c_int64 for int64_t, c_int for int."""
+    c_int64 for int64_t, c_double for double, c_int for int."""
     import ctypes
 
     from hic_genome_assembler_tpu_torch.ops import _build
@@ -366,7 +366,8 @@ def test_every_entry_point_has_its_ctypes_signature():
             "pair_score"} <= set(entries)
     for name, params in entries.items():
         want = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
-                else ctypes.c_int64 if p.startswith("int64_t") else ctypes.c_int
+                else ctypes.c_int64 if p.startswith("int64_t")
+                else ctypes.c_double if p.startswith("double") else ctypes.c_int
                 for p in params]
         assert _build.SIGNATURES[name] == want, name
 

@@ -173,11 +173,21 @@ def test_part2_stage_timers_sum_within_part2(cpu_run):
 
 
 def test_f64_rescore_counts_every_cost_function_call(cpu_run):
+    """Every ``oracle.cost_function`` call of part 2 is a re-scored
+    candidate, and the timer counts its batches: one a call of the batch
+    re-scorer, at most one a candidate."""
     timers, counters = cpu_run["part2"]
-    assert cpu_run["cost_calls"] > 0
-    assert timers["part2/f64_rescore"]["calls"] == cpu_run["cost_calls"]
+    calls = cpu_run["cost_calls"]
+    assert calls > 0
+    assert counters["part2/f64_rescore_candidates"] == calls
+    assert 0 < timers["part2/f64_rescore"]["calls"] <= calls
+    assert counters["part2/f64_rescore_elements"] >= calls  # K(K - 1)/2 >= 1 each
+    assert counters["part2/f64_rescore_launches"] == 0      # no card: no kernel
+    assert counters["part2/f64_rescore_launch_elements"] == 0
+    # the matrix goes to the device once a chromosome that re-scores
+    assert 0 < timers["part2/f64_upload"]["calls"] <= timers["part2/f64_rescore"]["calls"]
     # the sliding window's misses are some of them; its hits are not counted
-    assert counters.get("part2/f64_rescore_miss", 0) <= cpu_run["cost_calls"]
+    assert counters.get("part2/f64_rescore_miss", 0) <= calls
     assert "part2/f64_rescore_hit" not in counters
 
 

@@ -19,8 +19,9 @@ profiled total and its split by cumulative time:
 
 * ``uploads``: ``transfer.to_device`` / ``copy_into`` (or the parent's
   pageable forms), wherever they are called;
-* ``rescore_f64``: ``SubsetScorer.score_host``, the reference-exact f64
-  re-scoring on the host;
+* ``rescore_f64``: ``SubsetScorer.score_host_many``, the reference-exact
+  f64 re-scoring of a batch (its memo, the kernel launch and readback; the
+  host's gather and ``cost_function`` on the CPU) less its uploads;
 * ``table_build``: ``SubsetScorer.__init__`` (harmonic weights, the
   ``h @ Wm`` table) less its uploads;
 * ``kernel_wrappers``: the scoring kernels' wrappers (argument checks and
@@ -76,7 +77,10 @@ def split(stats):
     # an upload's seconds once: copy_into called by to_device is inside it
     uploads = sum(stats[k][3] - sum(ct for caller, (_cc, _nc, _tt, ct) in stats[k][4].items()
                                     if caller in up_keys) for k in up_keys)
-    rescore = _cum(stats, "ops/cost.py", ("score_host",))
+    # the re-scoring's own uploads (its matrix, the bin orders) count once, as uploads
+    rescore = _cum(stats, "ops/cost.py", ("score_host_many",)) - sum(
+        ct for k in up_keys for caller, (_cc, _nc, _tt, ct) in stats[k][4].items()
+        if caller[2] == "exact_costs")
     line = cost.SubsetScorer.__init__.__code__.co_firstlineno
     init = [k for k in stats if k[0].endswith("ops/cost.py") and k[1:] == (line, "__init__")]
     table = sum(stats[k][3] for k in init) - sum(
