@@ -692,9 +692,10 @@ def run_pipeline(
     start = time.time()
     profiling.reset()
     # read as 0 where no candidate is re-scored (``hicbench/metrics``)
-    profiling.declare("part2/f64_rescore", "part2/f64_upload")
+    profiling.declare("part2/f64_rescore", "part2/f64_upload", "part2/f64_bin_orders")
     for name in ("pageable_copies", "f64_rescore_candidates", "f64_rescore_launches",
-                 "f64_rescore_bins", "f64_rescore_elements", "f64_rescore_launch_elements"):
+                 "f64_rescore_bins", "f64_rescore_elements", "f64_rescore_launch_elements",
+                 "f64_bin_order_rows"):
         profiling.count("part2/" + name, 0)
     stats = cost_ops.PrecisionStats()
     with profiling.timer("part2/ingest"):

@@ -39,6 +39,7 @@ reach the scorer's device and are folded there once
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -86,6 +87,33 @@ def bin_order_of_block(
         bins = np.arange(offsets[s], offsets[s] + sizes[s])
         chunks.append(bins[::-1] if e else bins)
     return np.concatenate(chunks).astype(np.int32)
+
+
+def bin_orders_of_rows(
+    orders: np.ndarray, orients: np.ndarray, sizes: np.ndarray, offsets: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``bin_order_of_block`` of every row of ``orders`` and ``orients``
+    (int [B, W]; ids ``>= len(sizes)`` are padding) in one pass of array
+    operations.  ``offsets``: each scaffold's first bin.  Returns the rows'
+    bin orders one after another (int32 [sum K]) and each row's K (int64
+    [B]).  The bin at place p of the result, inside entry e, is e's start
+    bin plus its step (+1, or -1 for orientation 1) times p less e's first
+    place."""
+    S = len(sizes)
+    real = orders < S
+    ids = orders[real]                      # row by row, as each row's mask keeps them
+    lens = sizes[ids]
+    n = int(lens.sum())
+    # int32 temporaries: half the pages of int64 ones, which cost more
+    # than the arithmetic at a lump's thousands of bins a row
+    dtype = np.int32 if n < 2**31 else np.int64
+    reverse = orients[real] != 0
+    step = np.where(reverse, -1, 1).astype(dtype)
+    start = (offsets[ids] + np.where(reverse, lens - 1, 0)).astype(dtype)
+    first = (np.cumsum(lens) - lens).astype(dtype)
+    bins = np.repeat(start - step * first, lens) + np.repeat(step, lens) * np.arange(n, dtype=dtype)
+    ks = np.where(real, sizes[np.minimum(orders, S - 1)], 0).sum(axis=1)
+    return bins.astype(np.int32, copy=False), ks
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -283,6 +311,11 @@ class ChromosomeScorer:
         sizes_padded[: self.S] = self.sizes
         self._sizes_d = transfer.to_device(sizes_padded, dev)
         self._h = sk.pair_profiles(device_sub, self._sizes_d, self.cmax)
+
+    @functools.cached_property
+    def offsets(self) -> np.ndarray:
+        """Each scaffold's first bin in the canonical layout."""
+        return np.cumsum(self.sizes) - self.sizes
 
     @property
     def pad_id(self) -> int:
@@ -613,24 +646,31 @@ class SubsetScorer:
 
     def score_host_many(self, orders: Sequence, orients: Sequence) -> np.ndarray:
         """Reference-exact f64 costs [B] of candidates given as (order,
-        orientation) rows; pad ids are ignored.  Memoized by each
-        candidate's canonical bin order: the misses, each once, are
-        re-scored in one batch (``ChromosomeScorer.exact_costs``)."""
-        if self.degenerate:
-            return np.zeros(len(orders), dtype=np.float64)
-        keys = []
-        misses: dict = {}
-        for order, orient in zip(orders, orients):
-            order = np.asarray(order)
-            orient = np.asarray(orient)
-            real = order < self.S
-            bin_order = bin_order_of_block(order[real], orient[real], self.sizes)
-            key = bin_order.tobytes()
-            keys.append(key)
-            if key not in self._host_memo:
-                misses.setdefault(key, bin_order)
-        if misses:
-            costs = self.parent.exact_costs(np.stack(list(misses.values())), self.total)
+        orientation) rows of one width; pad ids are ignored.  Memoized by
+        each candidate's canonical bin order, built for all rows at once
+        (``bin_orders_of_rows``): the misses, each once, are re-scored in
+        one batch (``ChromosomeScorer.exact_costs``)."""
+        B = len(orders)
+        if self.degenerate or B == 0:
+            return np.zeros(B, dtype=np.float64)
+        with profiling.timer("part2/f64_bin_orders"):
+            bins, ks = bin_orders_of_rows(
+                np.asarray(orders), np.asarray(orients), self.sizes, self.parent.offsets
+            )
+            profiling.count("part2/f64_bin_order_rows", B)
+            keys = []
+            misses: dict = {}
+            end = 0
+            for k in ks.tolist():
+                bin_order = bins[end : end + k]
+                end += k
+                key = bin_order.tobytes()
+                keys.append(key)
+                if key not in self._host_memo:
+                    misses.setdefault(key, bin_order)
+            batch = np.stack(list(misses.values())) if misses else None
+        if batch is not None:
+            costs = self.parent.exact_costs(batch, self.total)
             self._host_memo.update(zip(misses, costs.tolist()))
         return np.array([self._host_memo[key] for key in keys], dtype=np.float64)
 

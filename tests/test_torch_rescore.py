@@ -258,6 +258,133 @@ def test_score_host_many_memoizes_and_batches():
 
 
 # ---------------------------------------------------------------------------
+# A call's bin orders, built for all its rows at once
+# ---------------------------------------------------------------------------
+
+def _sizes(rng, S, largest):
+    """``S`` scaffold sizes from 1 to ``largest``, a third of them one bin,
+    size-descending as the canonical layout has them."""
+    sizes = rng.integers(1, largest + 1, S)
+    sizes[rng.random(S) < 1 / 3] = 1
+    return np.sort(sizes)[::-1].astype(np.int64)
+
+
+def _rows(rng, S, B, W, counts):
+    """``B`` rows of width ``W``: row b holds ``counts[b]`` distinct real
+    ids in random orientations, then pad ids (``S`` and above) in every
+    place after them."""
+    orders = rng.integers(S, S + 4, (B, W))
+    orients = rng.integers(0, 2, (B, W))
+    for b, n in enumerate(counts):
+        orders[b, :n] = rng.permutation(S)[:n]
+    return orders.astype(np.int32), orients.astype(np.int32)
+
+
+def _split(bins, ks):
+    ends = np.cumsum(ks)
+    return [bins[e - k : e] for e, k in zip(ends, ks)]
+
+
+@pytest.mark.parametrize("S, largest", [(1, 2), (2, 1), (6, 5), (40, 30), (150, 40), (260, 40)])
+def test_bin_orders_of_rows_is_bin_order_of_block(S, largest):
+    """Row for row equal to ``bin_order_of_block`` of the row's real ids:
+    groups from 2 to a few thousand bins, real counts that differ within a
+    call (pads in every place after them), one-bin scaffolds both ways."""
+    rng = np.random.default_rng(S * 1000 + largest)
+    sizes = _sizes(rng, S, largest)
+    if S == 1:
+        sizes[0] = 2
+    offsets = np.cumsum(sizes) - sizes
+    W = -(-S // 8) * 8
+    counts = [S, 1] + rng.integers(1, S + 1, 14).tolist()
+    orders, orients = _rows(rng, S, len(counts), W, counts)
+    ones = np.nonzero(sizes == 1)[0]
+    if len(ones):  # a one-bin scaffold alone, in each orientation
+        orders[:2, 0], orients[:2, 0] = ones[0], [0, 1]
+        orders[1, 1:] = S
+    bins, ks = cost.bin_orders_of_rows(orders, orients, sizes, offsets)
+    assert bins.dtype == np.int32 and len(ks) == len(orders)
+    for b, got in enumerate(_split(bins, ks)):
+        real = orders[b] < S
+        want = cost.bin_order_of_block(orders[b][real], orients[b][real], sizes)
+        assert got.dtype == want.dtype and np.array_equal(got, want), b
+    if len(ones):
+        assert np.array_equal(_split(bins, ks)[1], [offsets[ones[0]]])
+
+
+def _parent_batches(scorer, orders, orients):
+    """The misses a call's rows give, as each row's ``bin_order_of_block``
+    keys them: one batch of the distinct bin orders in first-seen order."""
+    seen = {}
+    for o, r in zip(orders, orients):
+        real = o < scorer.S
+        bo = cost.bin_order_of_block(o[real], r[real], scorer.sizes)
+        seen.setdefault(bo.tobytes(), bo)
+    return list(seen.values())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_score_host_many_builds_a_call_at_once(seed, monkeypatch):
+    """On rows with pads, real counts that differ and one-bin scaffolds both
+    ways: each cost is the oracle's of the row's bin order, the batch sent
+    to ``exact_costs`` is the one the rows' own bin orders give, re-scored in
+    one ``part2/f64_rescore`` call, and ``part2/f64_bin_order_rows`` counts
+    the rows.  A second call of the same rows is all memo hits."""
+    rng = np.random.default_rng(100 + seed)
+    S = 24
+    sizes = _sizes(rng, S, 9)
+    sizes[-5:] = [2, 1, 1, 1, 1]
+    C = int(sizes.sum())
+    m = rng.random((C, C)) ** 2
+    m = m + m.T
+    scorer = cost.ChromosomeScorer(m, sizes, torch.device("cpu")).full()
+    batches = []
+    original = cost.ChromosomeScorer.exact_costs
+
+    def recording(self, bin_orders, total):
+        batches.append(bin_orders.copy())
+        return original(self, bin_orders, total)
+
+    monkeypatch.setattr(cost.ChromosomeScorer, "exact_costs", recording)
+
+    def check(orders, orients):
+        """One call of ``score_host_many`` against the parent's keys and
+        batch, and the oracle's costs."""
+        want = _parent_batches(scorer, orders, orients)
+        calls = profiling.summary().get("part2/f64_rescore", {"calls": 0})["calls"]
+        rows = profiling.counters().get("part2/f64_bin_order_rows", 0)
+        got = scorer.score_host_many(orders, orients)
+        assert np.array_equal(batches[-1], np.stack(want))
+        assert profiling.summary()["part2/f64_rescore"]["calls"] == calls + 1
+        assert profiling.counters()["part2/f64_bin_order_rows"] == rows + len(orders)
+        for o, r, value in zip(orders, orients, got):
+            bo = cost.bin_order_of_block(o[o < S], r[o < S], sizes)
+            assert value == oracle.cost_function(m[np.ix_(bo, bo)], scorer.total)
+        return got, len(want)
+
+    profiling.reset()
+    # every scaffold; rows 0-2 one bin order, a one-bin scaffold turned in 2
+    orders, orients = _rows(rng, S, 6, 32, [S] * 6)
+    orders[1:3], orients[1:3] = orders[0], orients[0]
+    one = np.nonzero(orders[2] == S - 1)[0][0]
+    orients[2, one] = 1 - orients[0, one]
+    got, n = check(orders, orients)
+    assert got[0] == got[1] == got[2] and n == 4
+    assert profiling.counters()["part2/f64_rescore_candidates"] == 4
+    assert np.array_equal(scorer.score_host_many(orders, orients), got)
+    assert len(batches) == 1 and profiling.counters()["part2/f64_bin_order_rows"] == 12
+    # C - 2 bins from S - 2 real ids (two one-bin scaffolds left out) and
+    # from S - 1 (the two-bin one left out): one batch
+    orders, orients = _rows(rng, S, 6, 32, [S - 2] * 3 + [S - 1] * 3)
+    for b, drop in enumerate([(S - 1, S - 2)] * 3 + [(S - 5,)] * 3):
+        keep = [i for i in rng.permutation(S) if i not in drop]
+        orders[b, : len(keep)] = keep
+    assert len({int(sizes[o[o < S]].sum()) for o in orders}) == 1
+    assert check(orders, orients)[1] == 6 and len(batches) == 2
+    profiling.reset()
+
+
+# ---------------------------------------------------------------------------
 # The CLI on a genome whose part 1 lumps chromosomes
 # ---------------------------------------------------------------------------
 

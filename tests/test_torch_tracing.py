@@ -191,6 +191,15 @@ def test_f64_rescore_counts_every_cost_function_call(cpu_run):
     assert "part2/f64_rescore_hit" not in counters
 
 
+def test_f64_bin_orders_time_every_rescoring_call(cpu_run):
+    """Every call of the batch re-scorer builds its rows' bin orders under
+    ``part2/f64_bin_orders``, memo hits included, so the rows expanded
+    number at least the candidates re-scored."""
+    timers, counters = cpu_run["part2"]
+    assert timers["part2/f64_bin_orders"]["calls"] >= timers["part2/f64_rescore"]["calls"] > 0
+    assert counters["part2/f64_bin_order_rows"] >= counters["part2/f64_rescore_candidates"] > 0
+
+
 def test_part1_spans_lie_in_the_cut_search(cpu_run):
     timers, counters = cpu_run["part1"]
     fits = counters["part1/hmm_fits"]
@@ -237,7 +246,7 @@ def test_cli_trace_writes_the_program_spans(tmp_path, monkeypatch):
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]
              if e.get("cat") == "user_annotation"}
     for name in ("part1/upgma", "part1/log_transform", "part2/brute_force",
-                 "part2/f64_rescore", "part3/read_pairs", "part4/write"):
+                 "part2/f64_rescore", "part2/f64_bin_orders", "part3/read_pairs", "part4/write"):
         assert name in names, name
 
 
@@ -271,6 +280,7 @@ def _job(window, timers=(), counters=(), parts=("part1", "part2", "part3", "part
     ("log_transform_s", "part1/log_transform"),
     ("fasta_write_s", "part4/write"),
     ("f64_rescore_s", "part2/f64_rescore"),
+    ("f64_bin_orders_s", "part2/f64_bin_orders"),
 ])
 def test_span_readers(window, name, timer):
     read = _reader(name)
